@@ -1,0 +1,409 @@
+"""Drive the PyTorch/H100 port's main path on one card and hold each of its
+CUDA kernels against its plain PyTorch version.
+
+    python3 chip_smoke.py             # from the root of a checkout, one card
+
+Phases (any failure exits non-zero and prints no result):
+ 1. device and build: the card's name, power limit and SM clock; the nvcc
+    build of every kernel with its ptxas register / shared-memory report;
+ 2. the bench scene (bench.py's workload, built with the port's own code):
+    9 views at 640x480, 60,000 GT points rendered through K1, a 30,000-point
+    perturbed initial state at capacity 131,072, the flat backend at tile 32;
+ 3. kernels against plain versions on view 0's real table at the
+    trainer's initial pair budget and cover window;
+ 4. the main path: Trainer.run for 60 steps (the bin cache is refreshed and
+    reused), with every launch counter zeroed just before and read after;
+    the last 50 steps, one chunk at one shape, are timed;
+ 5. kernels against plain versions again, on the trained state at the
+    shape those 50 steps ran, each timed with CUDA events beside its bound;
+ 6. a torch.profiler trace of 5 more steps: device time by kernel and the
+    device's busy share of the step;
+ 7. a {"kernels": [...]} line, the card line, and last the result line.
+It imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+WIDTH, HEIGHT, N_VIEWS, FOCAL = 640, 480, 9, 550.0
+N_GT, N_INIT, CAPACITY = 60_000, 30_000, 1 << 17
+WARM_STEPS, TRAIN_STEPS = 10, 60
+TIMED_LAUNCHES, WARM_LAUNCHES = 50, 5
+# H100 SXM published peaks (NVIDIA data sheet; dense, no sparsity)
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations per (live pair, pixel), transcendentals counted as one:
+# forward: alpha 20 (2 subs, 9 for the conic quadratic, 2 for log_op and
+# sign, min, exp, 2 compares/selects, 2 more for the tests) + log1p, prefix
+# add, 2 adds, exp, mul + 8 FMAs into the channels (16) = 43;
+# backward: alpha 20 + log1p, sub, exp, log-T update, w (5) + q = 8 FMAs (16)
+# + a and the suffix (2) + 1/(1-alpha) (2) + d_alpha (6) + d_power (2)
+# + gx, gy (6) + 6 geometric terms (8) + 8 d_chan products + 14 sums = 89.
+FWD_OPS, BWD_OPS = 43, 89
+TOL_OUT, TOL_ALPHA = 1e-5, 1e-6
+# dtab is held column by column at the column's own scale: max|d| of a
+# column <= TOL_DTAB_REL * max|dtab_plain| of that column
+TOL_DTAB_REL = 1e-5
+G_SCALE = 1e-4    # cotangent scale for K2's check: ~30x the per-pixel
+#                   cotangent of a mean loss over 640x480
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def nvidia_smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, n, warm):
+    """Mean device ms of fn over n launches after `warm` warm-up calls."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def build_scene(torch, dev):
+    """bench.py's scene and trainer configuration, from the port's code."""
+    import numpy as np
+
+    from fusionsense_tpu_torch.config import (
+        ExperimentConfig, LossConfig, ModelConfig, TrainConfig,
+    )
+    from fusionsense_tpu_torch.data.synthetic import (
+        ring_cameras, sphere_depth_normals, sphere_points,
+    )
+    from fusionsense_tpu_torch.gaussians.adc import ADCConfig
+    from fusionsense_tpu_torch.gaussians.init import init_from_points
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.render.rasterize import (
+        RasterizeConfig, rasterize,
+    )
+    from fusionsense_tpu_torch.train.trainer import TrainData
+
+    rcfg = RasterizeConfig(tile_size=32, tile_capacity=512,
+                           max_tiles_per_gaussian=9, tile_chunk=100,
+                           sh_degree=3, backend="flat")
+    cams = ring_cameras(n_views=N_VIEWS, width=WIDTH, height_px=HEIGHT,
+                        focal=FOCAL, device=dev)
+    pts, rgb, normals = sphere_points(n=N_GT, radius=0.5, device=dev)
+    gt = init_from_points(pts, rgb, capacity=CAPACITY, sh_degree=3,
+                          seed_normals=normals, init_opacity=0.95)
+    # the GT model's dead slots have opacity 0: render its alive prefix
+    m, q, s, o, c = (x[:N_GT] for x in activated(gt))
+    imgs, deps, nms = [], [], []
+    budget = 2048
+    with torch.no_grad():
+        for i in range(N_VIEWS):
+            while True:   # grow the GT pair budget on overflow, as bench.py
+                out = rasterize(m, q, s, o, c, cams.index(i),
+                                dataclasses.replace(rcfg, tile_capacity=budget),
+                                device=dev)
+                if int(out.overflow) == 0 or budget >= 16384:
+                    break
+                budget *= 2
+            if int(out.overflow):
+                raise RuntimeError(f"GT view {i} dropped {int(out.overflow)} "
+                                   f"pairs at budget {budget}")
+            imgs.append(out.rgb)
+            d, n, _ = sphere_depth_normals(cams.index(i))
+            deps.append(d)
+            nms.append(n)
+    data = TrainData(images=torch.stack(imgs), sensor_depths=torch.stack(deps),
+                     normals=torch.stack(nms))
+    pts2, rgb2, n2 = sphere_points(n=N_INIT, radius=0.5, seed=1, device=dev)
+    rng = np.random.RandomState(0)
+    noise = 0.02 * rng.randn(*pts2.shape).astype(np.float32)
+    init = init_from_points(pts2 + torch.as_tensor(noise, device=dev),
+                            torch.full_like(rgb2, 0.5), capacity=CAPACITY,
+                            sh_degree=3, seed_normals=n2)
+    cfg = ExperimentConfig(
+        model=ModelConfig(sh_degree=3, rasterize=rcfg, capacity=CAPACITY,
+                          binary_opacities=False),
+        train=TrainConfig(iterations=15_000, scan_chunk=50,
+                          bin_refresh_steps=2 * N_VIEWS, adc=ADCConfig()),
+        loss=LossConfig())
+    return cams, data, init, cfg, budget
+
+
+def view_psnr(torch, tr, view):
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.render.rasterize import rasterize
+
+    # the alive-first prefix at a fixed generous budget, so the start and
+    # end renders compare like with like
+    rc = dataclasses.replace(tr.cfg.model.rasterize, tile_capacity=2048)
+    with torch.no_grad():
+        out = rasterize(*(x[:tr.render_n] for x in activated(tr.gaussians)),
+                        tr.camera.index(view), rc, device=tr.device)
+        mse = torch.mean((out.rgb - tr.data.images[view]) ** 2)
+        return float(-10.0 * torch.log10(mse + 1e-10))
+
+
+def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
+    """K1/K2 against their plain versions on view 0's real table at the
+    given pair budget and cover window; with `timed`, also their times and
+    bounds."""
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.render import flat_composite as FC
+    from fusionsense_tpu_torch.render.composite import TileGrid
+    from fusionsense_tpu_torch.render.rasterize import (
+        flat_table, gaussian_flat_normals,
+    )
+    from fusionsense_tpu_torch.train.trainer import patched_cfg
+
+    cfg = patched_cfg(tr.cfg, tile_capacity, cover_tiles)
+    rc = cfg.model.rasterize
+    cam = tr.camera.index(0)
+    n = tr.render_n
+    with torch.no_grad():
+        means, quats, scales, op, colors = (x[:n] for x in activated(tr.gaussians))
+        ft = flat_table(means, quats, scales, op, colors, cam, rc,
+                        normals=gaussian_flat_normals(quats, scales, means,
+                                                      cam.origin))
+    fb = ft.bins
+    grid = TileGrid(cam.width, cam.height, rc.tile_size)
+    T, P, B = grid.num_tiles, grid.pixels_per_tile, rc.pallas_chunk
+    table = ft.table.contiguous()
+    runs = FC.tile_runs(fb.blk_tile, T)
+    count = fb.blk_count.contiguous()
+    PB, W = table.shape
+    nb, C = PB // B, W - 8
+    geo = (T, grid.tiles_x, rc.tile_size, B)
+    log(f"K1/K2 at tile_capacity {tile_capacity}, cover {cover_tiles}: "
+        f"table {tuple(table.shape)}  tiles {T}+1  P {P}  blocks {nb}  "
+        f"pairs_used {int(fb.used)}")
+
+    fwd = lambda: FC.flat_composite_fwd_cuda(table, runs, count, *geo)  # noqa: E731
+    fwd_p = lambda: FC.flat_composite_fwd_plain(table, runs, count, *geo)  # noqa: E731
+    out, logt, carry = fwd()
+    torch.cuda.synchronize()
+    out_p, logt_p, carry_p = fwd_p()
+    err_out = float((out - out_p).abs().max())
+    err_alpha = float((torch.exp(logt) - torch.exp(logt_p)).abs().max())
+    err_carry = float((torch.exp(carry) - torch.exp(carry_p)).abs().max())
+    log(f"K1 max|d|: out {err_out:.3e}  alpha {err_alpha:.3e}  "
+        f"transmittance carries {err_carry:.3e}")
+    if not (err_out <= TOL_OUT and err_alpha <= TOL_ALPHA
+            and err_carry <= TOL_ALPHA):
+        raise RuntimeError("K1 disagrees with its plain version")
+
+    gen = torch.Generator(device=table.device).manual_seed(0)
+    g_out = G_SCALE * torch.randn((T + 1, C, P), generator=gen,
+                                  device=table.device)
+    g_logt = G_SCALE * torch.randn((T + 1, P), generator=gen,
+                                   device=table.device)
+    g_out[T] = 0.0
+    g_logt[T] = 0.0
+    tx, ts = grid.tiles_x, rc.tile_size
+    bwd = lambda: FC.flat_composite_bwd_cuda(  # noqa: E731
+        table, runs, count, g_out, g_logt, logt, carry, tx, ts, B)
+    bwd_p = lambda: FC.flat_composite_bwd_plain(  # noqa: E731
+        table, runs, count, g_out, g_logt, logt, carry, tx, ts, B)
+    dtab = bwd()
+    torch.cuda.synchronize()
+    dtab_p = bwd_p()
+    err_col = (dtab - dtab_p).abs().amax(dim=0)
+    scale_col = dtab_p.abs().amax(dim=0)
+    nonzero = dtab_p.abs()[dtab_p != 0]
+    err_dtab = float(err_col.max())
+    rel_col = (err_col / scale_col.clamp_min(1e-30)).tolist()
+    log(f"K2 max|d| dtab {err_dtab:.3e}; median nonzero |dtab_plain| "
+        f"{float(nonzero.median()):.3e}; per column max|d| / max|dtab_plain| "
+        f"(limit {TOL_DTAB_REL:.0e}): " + " ".join(f"{r:.1e}" for r in rel_col))
+    if not bool((err_col <= TOL_DTAB_REL * scale_col).all()):
+        raise RuntimeError("K2 disagrees with its plain version")
+    errs = {"fwd": max(err_out, err_alpha, err_carry), "bwd": err_dtab}
+    if not timed:
+        return errs, None
+
+    # work these inputs need: live pairs of the blocks that were composited
+    live = (count > 0) & (carry.max(dim=1).values > FC.T_EPS_LOG)
+    live_pairs = int(count[live].sum())
+    live_blocks = int(live.sum())
+    f4 = 4
+    row_bytes = live_blocks * B * W * f4
+    fwd_bytes = (row_bytes + 3 * nb * f4 + (T + 1) * (C + 1) * P * f4
+                 + nb * P * f4)
+    bwd_bytes = (row_bytes + 3 * nb * f4 + (T + 1) * (C + 2) * P * f4
+                 + nb * P * f4 + PB * W * f4)
+    fwd_bound, fwd_kind = bound(live_pairs * P * FWD_OPS, fwd_bytes)
+    bwd_bound, bwd_kind = bound(live_pairs * P * BWD_OPS, bwd_bytes)
+    run_len = runs[1:T + 1] - runs[:T]
+    n_alive = int(tr.gaussians.num_alive)      # alive-first: dead slots follow
+    dead_pairs = int((fb.valid & (fb.gauss_ids >= n_alive)).sum())
+    log(f"live blocks {live_blocks}/{nb}, live pairs {live_pairs}; longest "
+        f"tile run {int(run_len.max())} blocks (tile {int(run_len.argmax())}),"
+        f" mean {float(run_len.float().mean()):.2f}; pairs of dead slots "
+        f"{dead_pairs}")
+
+    timings = {
+        "fwd": cuda_ms(fwd, TIMED_LAUNCHES, WARM_LAUNCHES),
+        "fwd_plain": cuda_ms(fwd_p, TIMED_LAUNCHES, WARM_LAUNCHES),
+        "bwd": cuda_ms(bwd, TIMED_LAUNCHES, WARM_LAUNCHES),
+        "bwd_plain": cuda_ms(bwd_p, TIMED_LAUNCHES, WARM_LAUNCHES),
+    }
+    log("kernel ms: " + json.dumps(timings))
+    src = "fusionsense_tpu_torch/csrc/flat_composite.cu"
+    return errs, [
+        {"name": "flat_composite_fwd (K1)", "route": "cuda", "source": src,
+         "replaces": "fusionsense_tpu/render/pallas_flat.py:52",
+         "launches": None, "max_abs_err": None,
+         "ms": timings["fwd"], "plain_ms": timings["fwd_plain"],
+         "bound_ms": fwd_bound, "bound_by": fwd_kind, "library_ms": None},
+        {"name": "flat_composite_bwd (K2)", "route": "cuda", "source": src,
+         "replaces": "fusionsense_tpu/render/pallas_flat.py:93",
+         "launches": None, "max_abs_err": None,
+         "ms": timings["bwd"], "plain_ms": timings["bwd_plain"],
+         "bound_ms": bwd_bound, "bound_by": bwd_kind, "library_ms": None},
+    ]
+
+
+def profile_steps(torch, tr, step_ms, steps=5):
+    """Device time by kernel over a few steps. The busy share divides the kernels' device time per step by the step time
+    measured without the profiler, whose own host cost inflates wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.run(iterations=tr.step + steps, log=None)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    launches = sum(e.count for e in rows) / steps
+    log(f"profile: {steps} steps; device kernels {busy:.3f} ms/step in "
+        f"{launches:.0f} launches/step; busy share of the unprofiled "
+        f"{step_ms:.2f} ms step: {100 * busy / step_ms:.1f}%")
+    for e in rows[:12]:
+        log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
+            f"{e.count / steps:6.1f}/step  {e.key[:80]}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    try:
+        from fusionsense_tpu_torch.kernels.build import SOURCES, build
+        from fusionsense_tpu_torch.render import flat_composite as FC
+        from fusionsense_tpu_torch.train.trainer import Trainer
+    except ImportError as e:
+        print(f"chip_smoke: run from a checkout of the repository ({e})",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # 1. device and build
+    card = nvidia_smi("name,power.limit")
+    log(f"card: {nvidia_smi('name,power.limit,clocks.sm')}")
+    log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+        f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    built = [build(name) for name in SOURCES]
+    log(f"build: {time.perf_counter() - t0:.1f} s for {list(SOURCES)}")
+    for b in built:
+        for line in b.log.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                log(f"  ptxas {b.name}: {line.strip()}")
+
+    # 2. scene
+    t0 = time.perf_counter()
+    cams, data, init, cfg, gt_budget = build_scene(torch, dev)
+    tr = Trainer(cfg, cams, data, init, device=dev)
+    torch.cuda.synchronize()
+    log(f"scene: {time.perf_counter() - t0:.1f} s (GT budget {gt_budget}); "
+        f"capacity {tr.gaussians.capacity}, render_n {tr.render_n}")
+
+    # 3. kernels against their plain versions, at the initial shapes
+    errs0, _ = check_kernels(torch, tr, tr.tile_capacity, tr.cover_tiles,
+                             timed=False)
+
+    # 4. the main path
+    psnr_start = view_psnr(torch, tr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    FC.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.run(iterations=WARM_STEPS, log=log)
+    torch.cuda.synchronize()
+    # the timed steps are one chunk, so they all run at this shape
+    timed_shape = (tr.tile_capacity, tr.cover_tiles)
+    t1 = time.perf_counter()
+    tr.run(iterations=TRAIN_STEPS, log=log)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(FC.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    psnr_end = view_psnr(torch, tr, 0)
+    last = tr.history[-1]
+    nonfinite = sum(r["nonfinite_steps"] for r in tr.history)
+    ms_step = (t2 - t1) * 1e3 / (TRAIN_STEPS - WARM_STEPS)
+    log(f"train: {tr.step} steps; first {WARM_STEPS} took {t1 - t0:.2f} s; "
+        f"last {TRAIN_STEPS - WARM_STEPS}: {ms_step:.2f} ms/step; peak "
+        f"{peak_gb:.3f} GB; pairs_used {last['pairs_used']}; alive "
+        f"{last['num_gaussians']}; timed steps at tile_capacity "
+        f"{timed_shape[0]}, cover {timed_shape[1]}; after them "
+        f"{tr.tile_capacity}, {tr.cover_tiles}; view-0 PSNR {psnr_start:.3f} -> {psnr_end:.3f}; "
+        f"logged PSNR {last['psnr']:.3f}; launches {launches}")
+    if not (math.isfinite(last["loss"]) and nonfinite == 0):
+        raise RuntimeError(f"non-finite training: loss {last['loss']}, "
+                           f"{nonfinite} skipped steps")
+    if not psnr_end > psnr_start:
+        raise RuntimeError(f"PSNR did not improve: {psnr_start} -> {psnr_end}")
+    if (launches["flat_composite_fwd"] < TRAIN_STEPS
+            or launches["flat_composite_bwd"] < TRAIN_STEPS):
+        raise RuntimeError(f"the main path missed a kernel: {launches}")
+    if launches["flat_composite_fwd_plain"] or launches["flat_composite_bwd_plain"]:
+        raise RuntimeError(f"the main path ran a plain version: {launches}")
+
+    # 5. kernels against their plain versions at the timed steps' shape
+    errs1, kernels = check_kernels(torch, tr, *timed_shape, timed=True)
+    for k, key in zip(kernels, ("fwd", "bwd")):
+        k["launches"] = launches[f"flat_composite_{key}"]
+        k["max_abs_err"] = max(errs0[key], errs1[key])
+
+    # 6. where the step's device time goes
+    profile_steps(torch, tr, ms_step)
+
+    # 7. results
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

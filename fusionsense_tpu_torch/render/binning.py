@@ -1,0 +1,256 @@
+"""Flat tile binning: depth-sorted (tile, gaussian) pairs laid out as
+block-aligned per-tile segments of one pair-budget array.
+
+Counterpart of the flat path of fusionsense_tpu/render/binning.py
+(FlatBins, auto_expand_budget, flat_bin_gaussians), with its 16-bit
+log-depth key, the dense N*C and the compact expand-budget enumerations, the
+block maps and the landing map. Index rules differ between the frameworks: a
+JAX gather clamps and a `mode="drop"` scatter drops an out-of-range index,
+while torch raises (CPU) or asserts on the device (CUDA). Every index below
+is clipped or masked before use, and the drop scatter writes into one spare
+slot that is then cut off. Sorts are stable (torch.sort(stable=True)); the
+JAX reference's sort_key_val gives ties no guaranteed order (ROADMAP F1).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+DEPTH_BITS = 16
+
+
+class FlatBins(NamedTuple):
+    gauss_ids: torch.Tensor     # (PB,) gaussian index per flat slot (clipped)
+    valid: torch.Tensor         # (PB,) slot holds a live pair
+    blk_tile: torch.Tensor      # (nb,) local tile of each block; T = dummy
+    blk_first: torch.Tensor     # (nb,) 1 if first block of its tile run
+    blk_count: torch.Tensor     # (nb,) live pairs in this block (0..B)
+    landing: Optional[torch.Tensor]  # (N, C) pair -> flat slot, -1 if dropped
+    overflow: torch.Tensor      # scalar: pairs dropped past the budget
+    truncated: torch.Tensor     # scalar: pairs dropped by the cover window
+    trunc_by_win: torch.Tensor  # (5,) counterfactual truncation telemetry
+    used: torch.Tensor          # scalar: block-aligned live pair total
+
+
+def cover_window(max_tiles_per_gaussian: int) -> int:
+    """Side of the static square cover window. The compact enumeration packs
+    window slots as dy*8+dx, so windows wider than 8 are refused (ROADMAP
+    F2: the reference silently corrupts tile ids there)."""
+    win = max(1, int(math.isqrt(max_tiles_per_gaussian)))
+    if win > 8:
+        raise ValueError(
+            f"max_tiles_per_gaussian={max_tiles_per_gaussian} gives a cover "
+            f"window of {win} > 8 tiles, which the dy*8+dx packing cannot hold")
+    return win
+
+
+def auto_expand_budget(pair_budget: int, n: int, max_tiles_per_gaussian: int,
+                       block: int = 128) -> int | None:
+    """Compact-expansion budget (1.5x the pair budget, block-rounded), or
+    None when the dense N*C enumeration is already at least as small."""
+    win = max(1, int(math.isqrt(max_tiles_per_gaussian)))
+    eb = -(-(pair_budget * 3 // 2) // block) * block
+    return eb if eb < n * win * win else None
+
+
+def _i32(x) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+@torch.no_grad()
+def flat_bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
+                       depth: torch.Tensor, *, width: int, height: int,
+                       tile_size: int, pair_budget: int,
+                       max_tiles_per_gaussian: int = 16, block: int = 128,
+                       tile_lo: int = 0, num_tiles_local: int | None = None,
+                       compute_landing: bool = True,
+                       expand_budget: int | None = None) -> FlatBins:
+    """Depth-sorted pairs laid out as block-aligned per-tile segments.
+
+    tile_lo / num_tiles_local restrict the layout to a local tile range;
+    compute_landing=False skips the landing map; expand_budget < N*C selects
+    the compact live-pair enumeration (see the JAX docstring for the
+    design). Integer outputs are int32, as in the reference."""
+    dev = mean2d.device
+    N = mean2d.shape[0]
+    tiles_x = -(-width // tile_size)
+    tiles_y = -(-height // tile_size)
+    num_tiles = tiles_x * tiles_y if num_tiles_local is None else num_tiles_local
+    B = block
+    PB = pair_budget
+    if PB % B:
+        raise ValueError("pair_budget must be a multiple of the kernel block")
+    win = cover_window(max_tiles_per_gaussian)
+    C = win * win
+    if (num_tiles + 1) << DEPTH_BITS >= 2 ** 31:
+        raise ValueError("key overflow: too many tiles for a 32-bit key")
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    valid = radius > 0
+    big = torch.finfo(torch.float32).max
+    d_safe = torch.clamp_min(depth, 1e-12)
+    log_d = torch.log(torch.where(valid, d_safe, torch.full_like(d_safe, big)))
+    lo = torch.min(log_d)
+    hi = torch.max(torch.where(valid, log_d, torch.full_like(log_d, -big)))
+    span = torch.clamp_min(hi - lo, 1e-12)
+    n_q = (1 << DEPTH_BITS) - 1
+    rank = torch.clamp((log_d - lo) / span * n_q, 0, n_q).to(torch.int64)
+
+    def tile_of(v, hi_t):
+        return torch.clamp(torch.floor(v / tile_size), 0, hi_t - 1).to(torch.int64)
+
+    tx0 = tile_of(mean2d[:, 0] - radius, tiles_x)
+    tx1 = tile_of(mean2d[:, 0] + radius, tiles_x)
+    ty0 = tile_of(mean2d[:, 1] - radius, tiles_y)
+    ty1 = tile_of(mean2d[:, 1] + radius, tiles_y)
+    bw = tx1 - tx0 + 1
+    bh = ty1 - ty0 + 1
+
+    zero = torch.zeros_like(bw)
+    cover = torch.where(valid, torch.clamp_min(bw, 0) * torch.clamp_min(bh, 0), zero)
+
+    def trunc_at(w):
+        return torch.sum(cover - torch.where(
+            valid, torch.clamp_max(bw, w) * torch.clamp_max(bh, w), zero))
+
+    truncated = trunc_at(win)
+    trunc_by_win = torch.stack([trunc_at(w) for w in range(1, 6)])
+    dead_key = num_tiles << DEPTH_BITS
+
+    use_compact = expand_budget is not None and expand_budget < N * C
+    if use_compact:
+        EB = expand_budget
+        w_live = torch.where(valid, torch.clamp_max(bw, win), zero)
+        h_live = torch.where(valid, torch.clamp_max(bh, win), zero)
+        c_live = w_live * h_live
+        S = torch.cumsum(c_live, 0) - c_live                     # exclusive
+        total_live = S[-1] + c_live[-1]
+        # row -> gaussian: each live gaussian's id at its segment start
+        # (starts past EB go to the spare slot EB), then a running max
+        start_ok = (c_live > 0) & (S < EB)
+        gid = torch.arange(N, **i64)
+        seg_mark = torch.full((EB + 1,), -1, **i64)
+        seg_mark.scatter_reduce_(
+            0, torch.where(start_ok, S, torch.full_like(S, EB)),
+            torch.where(start_ok, gid, torch.full_like(gid, -1)), "amax")
+        g_of = torch.clamp_min(torch.cummax(seg_mark[:EB], 0).values, 0)
+        j = torch.arange(EB, **i64)
+        r = j - S[g_of]
+        live = j < total_live
+        lut = np.zeros((win * win, win + 1), np.int64)
+        for wv in range(1, win + 1):
+            for rv in range(win * win):
+                lut[rv, wv] = (rv // wv) * 8 + (rv % wv)
+        lut_t = torch.as_tensor(lut.reshape(-1), device=dev)
+        packed = lut_t[torch.clamp(r, 0, win * win - 1) * (win + 1) + w_live[g_of]]
+        dy_c = packed >> 3
+        dx_c = packed & 7
+        local_c = (ty0[g_of] + dy_c) * tiles_x + tx0[g_of] + dx_c - tile_lo
+        pair_live = live & (local_c >= 0) & (local_c < num_tiles)
+        lid_c = torch.clamp(local_c, 0, num_tiles - 1)
+        flat_key = torch.where(pair_live, (lid_c << DEPTH_BITS) | rank[g_of],
+                               torch.full_like(lid_c, dead_key))
+        n_pairs = EB
+        expand_dropped = torch.clamp_min(total_live - EB, 0)
+    else:
+        dxs = torch.arange(win, **i64)
+        dys = torch.arange(win, **i64)
+        tile_id = ((ty0[:, None, None] + dys[None, :, None]) * tiles_x
+                   + tx0[:, None, None] + dxs[None, None, :])
+        pair_ok = (valid[:, None, None]
+                   & (dys[None, :, None] < bh[:, None, None])
+                   & (dxs[None, None, :] < bw[:, None, None]))
+        local_id = tile_id - tile_lo
+        pair_ok = pair_ok & (local_id >= 0) & (local_id < num_tiles)
+        lid = torch.clamp(local_id, 0, num_tiles - 1)
+        key = torch.where(pair_ok, (lid << DEPTH_BITS) | rank[:, None, None],
+                          torch.full_like(lid, dead_key))
+        flat_key = key.reshape(-1)
+        n_pairs = N * C
+
+    sorted_key, sorted_pair = torch.sort(_i32(flat_key), stable=True)
+    sorted_tile = sorted_key >> DEPTH_BITS                     # int32
+
+    # per-tile raw and block-aligned segment offsets
+    bounds = torch.searchsorted(
+        sorted_tile, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev))
+    starts, ends = bounds[:-1], bounds[1:]
+    counts = ends - starts
+    acounts = ((counts + B - 1) // B) * B
+    astarts = torch.cat([torch.zeros(1, **i64), torch.cumsum(acounts, 0)[:-1]])
+    total_aligned = astarts[-1] + acounts[-1]
+    overflow = torch.sum(torch.clamp_min(
+        torch.minimum(astarts + counts, total_aligned)
+        - torch.clamp_min(astarts, PB), 0))
+
+    # block maps
+    nb = PB // B
+    bs = torch.arange(nb, **i64) * B
+    t_of = torch.clamp(torch.searchsorted(astarts, bs, right=True) - 1,
+                       0, num_tiles - 1)
+    real = bs < total_aligned
+    blk_tile = torch.where(real, t_of, torch.full_like(t_of, num_tiles))
+    blk_count = torch.where(
+        real, torch.clamp(counts[t_of] - (bs - astarts[t_of]), 0, B),
+        torch.zeros_like(t_of))
+    blk_first = torch.cat([torch.ones(1, **i64),
+                           (blk_tile[1:] != blk_tile[:-1]).to(torch.int64)])
+
+    # flat gaussian ids
+    blk_sorted_start = starts[t_of] + (bs - astarts[t_of])
+    sorted_pos = torch.clamp(
+        blk_sorted_start[:, None] + torch.arange(B, **i64)[None, :],
+        0, n_pairs - 1).reshape(-1)
+    if use_compact:
+        gauss_ids = g_of[sorted_pair[sorted_pos]]
+    else:
+        gauss_ids = sorted_pair[sorted_pos] // C
+    slot_in_blk = torch.arange(B, **i64).repeat(nb)
+    valid_flat = slot_in_blk < blk_count.repeat_interleave(B)
+
+    landing = None
+    if compute_landing:
+        i = torch.arange(n_pairs, **i64)
+        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                              sorted_tile[1:] != sorted_tile[:-1]])
+        zi = torch.zeros_like(i)
+        seg_head = torch.cummax(torch.where(is_start, i, zi), 0).values
+        head_or_inf = torch.where(is_start, i, torch.full_like(i, n_pairs))
+        nh_incl = torch.flip(torch.cummin(torch.flip(head_or_inf, [0]), 0).values,
+                             [0])
+        nh = torch.cat([nh_incl[1:], torch.full((1,), n_pairs, **i64)])
+        seg_alen = torch.where(is_start, ((nh - i + B - 1) // B) * B, zi)
+        astart_head = torch.cumsum(seg_alen, 0) - seg_alen
+        astart_elem = torch.cummax(torch.where(is_start, astart_head, zi), 0).values
+        flat_pos = astart_elem + (i - seg_head)
+        ok = (sorted_tile < num_tiles) & (flat_pos < PB)
+        landing_sorted = torch.where(ok, flat_pos, torch.full_like(flat_pos, -1))
+        # sorted_pair is a permutation: inverting it is one scatter
+        landing_flat = torch.empty_like(landing_sorted)
+        landing_flat[sorted_pair] = landing_sorted
+        if use_compact:
+            dy_s = torch.arange(win, **i64).repeat_interleave(win)[None, :]
+            dx_s = torch.arange(win, **i64).repeat(win)[None, :]
+            rr = dy_s * w_live[:, None] + dx_s
+            slot_live = (dy_s < h_live[:, None]) & (dx_s < w_live[:, None])
+            pos = S[:, None] + rr
+            in_eb = slot_live & (pos < EB)
+            landing = torch.where(in_eb, landing_flat[torch.clamp(pos, 0, EB - 1)],
+                                  torch.full_like(pos, -1))
+        else:
+            landing = landing_flat.reshape(N, C)
+        landing = _i32(landing)
+
+    used = total_aligned
+    if use_compact:
+        used = torch.maximum(total_aligned, total_live)
+        overflow = overflow + expand_dropped
+
+    return FlatBins(gauss_ids=_i32(gauss_ids), valid=valid_flat,
+                    blk_tile=_i32(blk_tile), blk_first=_i32(blk_first),
+                    blk_count=_i32(blk_count), landing=landing,
+                    overflow=_i32(overflow), truncated=_i32(truncated),
+                    trunc_by_win=_i32(trunc_by_win), used=_i32(used))

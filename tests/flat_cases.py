@@ -1,0 +1,91 @@
+"""Random pair tables and block maps for the flat-compositor tests (shared
+by test_torch_flat_composite.py and test_torch_kernels.py; imports no JAX,
+so the card's tests can run where JAX is not installed).
+
+The cases cover a saturated tile (whole blocks skipped), a tile that owns no
+block, a live block with count 0, and the dummy tail."""
+import numpy as np
+import torch
+
+from fusionsense_tpu_torch.render import flat_composite as FC
+
+B, TS, TILES_X, TILES_Y, C = 128, 16, 3, 2, 8
+T, P, W = TILES_X * TILES_Y, TS * TS, 8 + C
+
+CASES = {
+    # tile 2 owns no block; tile 4 is saturated after its first block
+    "mixed": dict(runs=[2, 1, 0, 3, 4, 1], saturate=(4,)),
+    "zero_count_block": dict(runs=[1, 2, 1, 1, 1, 2], zero_count_block=1),
+}
+
+
+def maps(runs, dummy=2, zero_count_block=None, seed=0):
+    rng = np.random.RandomState(seed)
+    blk_tile, blk_count = [], []
+    for t, n in enumerate(runs):
+        for k in range(n):
+            blk_tile.append(t)
+            blk_count.append(B if k < n - 1 else int(rng.randint(1, B + 1)))
+    blk_tile += [T] * dummy
+    blk_count += [0] * dummy
+    blk_count = np.asarray(blk_count, np.int32)
+    if zero_count_block is not None:
+        blk_count[zero_count_block] = 0
+    blk_tile = np.asarray(blk_tile, np.int32)
+    blk_first = np.concatenate(
+        [[1], (blk_tile[1:] != blk_tile[:-1]).astype(np.int32)]).astype(np.int32)
+    return blk_tile, blk_first, blk_count
+
+
+def table(blk_tile, blk_count, saturate=(), seed=0):
+    rng = np.random.RandomState(seed)
+    nb = blk_tile.shape[0]
+    tab = np.zeros((nb, B, W), np.float32)
+    tab[..., 5] = -1e10
+    for b in range(nb):
+        t = blk_tile[b]
+        if t >= T:
+            continue
+        ox, oy = (t % TILES_X) * TS, (t // TILES_X) * TS
+        n = blk_count[b]
+        sat = t in saturate
+        sig = rng.uniform(12.0, 20.0, (n, 2)) if sat else rng.uniform(1.5, 6.0, (n, 2))
+        rho = rng.uniform(-0.3, 0.3, n)
+        sxx, syy = sig[:, 0] ** 2, sig[:, 1] ** 2
+        sxy = rho * sig[:, 0] * sig[:, 1]
+        det = sxx * syy - sxy ** 2
+        tab[b, :n, 0] = ox + rng.uniform(-4, TS + 4, n)
+        tab[b, :n, 1] = oy + rng.uniform(-4, TS + 4, n)
+        tab[b, :n, 2] = syy / det
+        tab[b, :n, 3] = -sxy / det
+        tab[b, :n, 4] = sxx / det
+        op = rng.uniform(0.9, 0.99, n) if sat else rng.uniform(0.05, 0.9, n)
+        tab[b, :n, 5] = np.log(op)
+        tab[b, :n, 8:15] = rng.uniform(0.0, 1.0, (n, 7))
+    return tab.reshape(nb * B, W)
+
+
+def case(name):
+    """(table, blk_tile, blk_first, blk_count, g_out, g_alpha) as numpy."""
+    spec = CASES[name]
+    blk_tile, blk_first, blk_count = maps(
+        spec["runs"], zero_count_block=spec.get("zero_count_block"))
+    tab = table(blk_tile, blk_count, saturate=spec.get("saturate", ()))
+    # cotangents at the scale a per-pixel mean loss gives (~1e-2 here): with
+    # unit cotangents the conic columns sum terms of ~1e3 over the tile, and
+    # float32 summation order alone moves them by more than 1e-5
+    rng = np.random.RandomState(1)
+    g_out = 0.01 * rng.normal(size=(T, P, C)).astype(np.float32)
+    g_alpha = 0.01 * rng.normal(size=(T, P)).astype(np.float32)
+    return tab, blk_tile, blk_first, blk_count, g_out, g_alpha
+
+
+def torch_fwd_bwd(tab, blk_tile, blk_count, g_out, g_alpha, device="cpu"):
+    """Port's flat_composite forward + autograd backward on `device`."""
+    t = torch.tensor(tab, device=device, requires_grad=True)
+    ms = [torch.tensor(a, device=device) for a in (blk_tile, blk_count)]
+    out, alpha = FC.flat_composite(t, *ms, T, TILES_X, TS, B)
+    torch.autograd.backward([out, alpha], [torch.tensor(g_out, device=device),
+                                           torch.tensor(g_alpha, device=device)])
+    return (out.detach().cpu().numpy(), alpha.detach().cpu().numpy(),
+            t.grad.cpu().numpy())

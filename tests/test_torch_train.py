@@ -1,0 +1,346 @@
+"""Losses, optimizer, ADC stats, compaction, the step body and Trainer.run of
+the port against the JAX package on a small flat-backend fixture: 3 views
+at 64x48, tile 16, capacity 2048, bin_refresh_steps = 2 * V. Both packages
+start from the same numpy state (convert.py)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fusionsense_tpu.config as CFJ
+import fusionsense_tpu.train.losses as LJ
+import fusionsense_tpu_torch.config as CFT
+import fusionsense_tpu_torch.train.losses as LT
+from fusionsense_tpu.data import synthetic as SYNJ
+from fusionsense_tpu.gaussians import adc as ADCJ
+from fusionsense_tpu.gaussians import resize as RSJ
+from fusionsense_tpu.gaussians.init import init_from_points as init_j
+from fusionsense_tpu.gaussians.store import activated as activated_j
+from fusionsense_tpu.render.rasterize import RasterizeConfig as RCJ
+from fusionsense_tpu.render.rasterize import rasterize as rasterize_j
+from fusionsense_tpu.train import optim as OJ
+from fusionsense_tpu.train import trainer as TRJ
+from fusionsense_tpu_torch import convert
+from fusionsense_tpu_torch.data import synthetic as SYNT
+from fusionsense_tpu_torch.gaussians import adc as ADCT
+from fusionsense_tpu_torch.gaussians import resize as RST
+from fusionsense_tpu_torch.gaussians.init import (
+    init_from_points as init_t, knn_mean_dist as knn_t,
+)
+from fusionsense_tpu_torch.render.rasterize import RasterizeConfig as RCT
+from fusionsense_tpu_torch.train import optim as OT
+from fusionsense_tpu_torch.train import trainer as TRT
+
+V, W, H = 3, 64, 48
+RKW = dict(tile_size=16, tile_capacity=128, max_tiles_per_gaussian=9,
+           sh_degree=3, backend="flat")
+
+
+def _cfg(mod, rc_cls, **train_kw):
+    return mod.ExperimentConfig(
+        model=mod.ModelConfig(sh_degree=3, rasterize=rc_cls(**RKW),
+                              capacity=2048, binary_opacities=False),
+        train=mod.TrainConfig(iterations=12, scan_chunk=4, log_every=4,
+                              bin_refresh_steps=2 * V, **train_kw),
+        loss=mod.LossConfig())
+
+
+def _np_tree(x):
+    return {k: np.asarray(v) for k, v in dict(x).items()}
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    cams_j = SYNJ.ring_cameras(n_views=V, width=W, height_px=H, focal=60.0)
+    pts, rgb, nrm = SYNJ.sphere_points(n=400, radius=0.5)
+    gt = init_j(pts, rgb, capacity=512, sh_degree=3, seed_normals=nrm,
+                init_opacity=0.95)
+    m, q, s, o, c = activated_j(gt)
+    rc = RCJ(**dict(RKW, tile_capacity=512))
+    render = jax.jit(lambda i: rasterize_j(m, q, s, o, c, cams_j.index(i), rc).rgb)
+    images = np.stack([np.asarray(render(i)) for i in range(V)])
+    dn = [SYNJ.sphere_depth_normals(cams_j.index(i)) for i in range(V)]
+    data = {"images": images,
+            "sensor_depths": np.stack([np.asarray(d[0]) for d in dn]),
+            "normals": np.stack([np.asarray(d[1]) for d in dn])}
+    pts2, _, nrm2 = SYNJ.sphere_points(n=150, radius=0.5)
+    rng = np.random.RandomState(0)
+    pts2 = np.asarray(pts2) + 0.03 * rng.randn(150, 3).astype(np.float32)
+    init = init_j(jnp.asarray(pts2), jnp.full((150, 3), 0.5), capacity=2048,
+                  sh_degree=3, seed_normals=nrm2)
+    return cams_j, data, _np_tree(init), pts2, np.asarray(nrm2)
+
+
+def _torch_side(fx):
+    cams_j, data, init, _, _ = fx
+    cams_t = SYNT.ring_cameras(n_views=V, width=W, height_px=H, focal=60.0,
+                               device="cpu")
+    return (cams_t, convert.train_data_from_numpy(data, "cpu"),
+            convert.state_from_numpy(init, "cpu"))
+
+
+def _jax_side(fx):
+    cams_j, data, init, _, _ = fx
+    from fusionsense_tpu.gaussians.store import GaussianState
+
+    state = GaussianState(**{k: jnp.asarray(v) for k, v in init.items()})
+    return (cams_j, TRJ.TrainData(**{k: jnp.asarray(v) for k, v in data.items()}),
+            state)
+
+
+# ------------------------------------------------------------- losses ------
+
+def _imgs(seed):
+    rng = np.random.RandomState(seed)
+    a = rng.uniform(size=(H, W, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1).astype(np.float32)
+    d1 = rng.uniform(0.5, 2.0, (H, W)).astype(np.float32)
+    d2 = (d1 + 0.2 * rng.normal(size=d1.shape)).astype(np.float32)
+    m = (rng.uniform(size=(H, W)) > 0.3).astype(np.float32)
+    return a, b, d1, d2, m
+
+
+LOSSES = {
+    "rgb_loss": lambda L, a, b, d1, d2, m: L.rgb_loss(a, b, None, 0.2),
+    "rgb_loss_masked": lambda L, a, b, d1, d2, m: L.rgb_loss(a, b, m[..., None]),
+    "ssim": lambda L, a, b, d1, d2, m: L.ssim(a, b),
+    "depth_l1": lambda L, a, b, d1, d2, m: L.depth_l1(d1, d2, m),
+    "depth_mse": lambda L, a, b, d1, d2, m: L.depth_mse(d1, d2, m),
+    "depth_logl1": lambda L, a, b, d1, d2, m: L.depth_logl1(d1, d2, m),
+    "depth_huberl1": lambda L, a, b, d1, d2, m: L.depth_huberl1(d1, d2, m),
+    "edge_aware_logl1": lambda L, a, b, d1, d2, m: L.depth_edge_aware_logl1(
+        d1, d2, a, m),
+    "tv": lambda L, a, b, d1, d2, m: L.tv_loss(a, m),
+    "edge_aware_tv": lambda L, a, b, d1, d2, m: L.edge_aware_tv(d1, a),
+    "normal_l1": lambda L, a, b, d1, d2, m: L.normal_l1(a - 0.5, b - 0.5, m),
+    "normal_cosine": lambda L, a, b, d1, d2, m: L.normal_cosine(a - 0.5, b - 0.5),
+    "flatness": lambda L, a, b, d1, d2, m: L.flatness_loss(
+        a[0] - 3.0, m[0] > 0.5),
+    "entropy": lambda L, a, b, d1, d2, m: L.opacity_entropy_loss(
+        4 * a[0, :, 0] - 2, m[0] > 0.5),
+    "touch_normal": lambda L, a, b, d1, d2, m: L.touch_normal_loss(
+        a[0], b[0], m[0] > 0.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOSSES))
+def test_losses_match_jax(name):
+    arrs = _imgs(1)
+    lj = LOSSES[name](LJ, *[jnp.asarray(x) for x in arrs])
+    lt = LOSSES[name](LT, *[torch.tensor(x) for x in arrs])
+    np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5, atol=1e-7)
+
+
+def test_normals_from_depth_match_jax(fixture):
+    cams_j = fixture[0]
+    cams_t = SYNT.ring_cameras(n_views=V, width=W, height_px=H, focal=60.0,
+                               device="cpu")
+    d = fixture[1]["sensor_depths"][0] + 1.0
+    nj = LJ.normals_from_depth(jnp.asarray(d), cams_j.index(0))
+    nt = LT.normals_from_depth(torch.tensor(d), cams_t.index(0))
+    np.testing.assert_allclose(nt.numpy(), np.asarray(nj), atol=1e-4)
+
+
+# ----------------------------------------------------- init / optim / adc --
+
+def test_init_from_points_matches_jax(fixture):
+    _, _, init, pts2, nrm2 = fixture
+    st = init_t(torch.tensor(pts2), torch.full((150, 3), 0.5), capacity=2048,
+                sh_degree=3, seed_normals=torch.tensor(nrm2))
+    for k, v in st.fields().items():
+        np.testing.assert_allclose(v.numpy(), init[k], atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(knn_t(torch.tensor(pts2), chunk=64).numpy(),
+                               np.exp(init["log_scales"][:150, 0]), rtol=1e-5)
+
+
+def _params(seed, n=64):
+    rng = np.random.RandomState(seed)
+    return {"means": rng.normal(size=(n, 3)).astype(np.float32),
+            "features_dc": rng.normal(size=(n, 3)).astype(np.float32),
+            "logit_opacities": rng.normal(size=(n,)).astype(np.float32)}
+
+
+def test_adam_step_matches_jax():
+    groups = {"means": OJ.GroupSpec(1.6e-4, 1.6e-6, 100),
+              "features_dc": OJ.GroupSpec(2.5e-3, every_k=3),
+              "logit_opacities": OJ.GroupSpec(5e-2)}
+    groups_t = {k: OT.GroupSpec(**dataclasses.asdict(v)) for k, v in groups.items()}
+    p = _params(0)
+    alive = np.random.RandomState(1).uniform(size=64) > 0.2
+    pj = {k: jnp.asarray(v) for k, v in p.items()}
+    pt = {k: torch.tensor(v) for k, v in p.items()}
+    sj, st = OJ.init_adam(pj), OT.init_adam(pt)
+    for step in range(7):
+        g = _params(10 + step)
+        pj, sj = OJ.adam_step(pj, {k: jnp.asarray(v) for k, v in g.items()},
+                              sj, jnp.int32(step), jnp.asarray(alive),
+                              groups=groups)
+        pt, st = OT.adam_step(pt, {k: torch.tensor(v) for k, v in g.items()},
+                              st, step, torch.tensor(alive), groups=groups_t)
+    for k in p:
+        np.testing.assert_allclose(pt[k].numpy(), np.asarray(pj[k]),
+                                   atol=1e-6, rtol=1e-5, err_msg=k)
+        for tree in ("m", "v", "acc"):
+            np.testing.assert_allclose(getattr(st, tree)[k].numpy(),
+                                       np.asarray(getattr(sj, tree)[k]),
+                                       atol=1e-7, rtol=1e-5)
+        assert int(st.counts[k]) == int(sj.counts[k])
+
+
+def test_accumulate_stats_and_compaction_match_jax():
+    rng = np.random.RandomState(2)
+    n = 96
+    grad = rng.normal(size=(n, 2)).astype(np.float32)
+    radius = np.where(rng.uniform(size=n) > 0.4, rng.uniform(1, 9, n), 0.0)
+    radius = radius.astype(np.float32)
+    sj = ADCJ.accumulate_stats(ADCJ.init_stats(n), jnp.asarray(grad),
+                               jnp.asarray(radius), W, H)
+    stt = ADCT.accumulate_stats(ADCT.init_stats(n, "cpu"), torch.tensor(grad),
+                                torch.tensor(radius), W, H)
+    for k, v in stt.fields().items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(getattr(sj, k)),
+                                   rtol=1e-6, err_msg=k)
+
+    from fusionsense_tpu.gaussians.store import new_state as new_j
+
+    g_j = new_j(n, 3).replace(
+        means=jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32)),
+        alive=jnp.asarray(rng.uniform(size=n) > 0.5))
+    o_j = OJ.init_adam(g_j.params())
+    o_j = o_j.replace(m={**o_j.m, "means": g_j.means * 2})
+    g_t = convert.state_from_numpy(_np_tree(g_j), "cpu")
+    o_t = convert.adam_from_numpy(
+        {"m": _np_tree(o_j.m), "v": _np_tree(o_j.v), "acc": _np_tree(o_j.acc),
+         "counts": _np_tree(o_j.counts)}, "cpu")
+    gj2, oj2, sj2 = RSJ.compact_train_state(g_j, o_j, sj)
+    gt2, ot2, st2 = RST.compact_train_state(g_t, o_t, stt)
+    for k, v in gt2.fields().items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(getattr(gj2, k)))
+    np.testing.assert_array_equal(ot2.m["means"].numpy(),
+                                  np.asarray(oj2.m["means"]))
+    np.testing.assert_allclose(st2.grad2d_acc.numpy(),
+                               np.asarray(sj2.grad2d_acc), rtol=1e-6)
+    for cap in (64, 192):
+        gj3, _, _ = RSJ.resize_train_state(gj2, oj2, sj2, new_capacity=cap)
+        gt3, _, _ = RST.resize_train_state(gt2, ot2, st2, new_capacity=cap)
+        np.testing.assert_array_equal(gt3.alive.numpy(), np.asarray(gj3.alive))
+        np.testing.assert_array_equal(gt3.means.numpy(), np.asarray(gj3.means))
+
+
+def test_cameras_and_stats_carry_across(fixture):
+    """JAX cameras and refine stats, fetched as numpy, continue in the port."""
+    cams_j = fixture[0]
+    keys = ("viewmat", "fx", "fy", "cx", "cy")
+    cam_t = convert.camera_from_numpy(
+        {**{k: np.asarray(getattr(cams_j, k)) for k in keys},
+         "width": cams_j.width, "height": cams_j.height}, "cpu")
+    ring_t = SYNT.ring_cameras(n_views=V, width=W, height_px=H, focal=60.0,
+                               device="cpu")
+    assert (cam_t.width, cam_t.height) == (ring_t.width, ring_t.height)
+    for k in keys:
+        np.testing.assert_allclose(getattr(cam_t, k).numpy(),
+                                   getattr(ring_t, k).numpy(), atol=1e-6)
+    for i in range(V):
+        np.testing.assert_allclose(cam_t.index(i).origin.numpy(),
+                                   np.asarray(cams_j.index(i).origin), atol=1e-6)
+
+    rng = np.random.RandomState(3)
+    n = 64
+    grads = rng.normal(size=(2, n, 2)).astype(np.float32)
+    radii = np.where(rng.uniform(size=(2, n)) > 0.4,
+                     rng.uniform(1, 9, (2, n)), 0.0).astype(np.float32)
+    sj = ADCJ.init_stats(n)
+    for g, r in zip(grads, radii):
+        sj = ADCJ.accumulate_stats(sj, jnp.asarray(g), jnp.asarray(r), W, H)
+    sj1 = ADCJ.accumulate_stats(ADCJ.init_stats(n), jnp.asarray(grads[0]),
+                                jnp.asarray(radii[0]), W, H)
+    st = ADCT.accumulate_stats(convert.stats_from_numpy(_np_tree(sj1), "cpu"),
+                               torch.tensor(grads[1]), torch.tensor(radii[1]),
+                               W, H)
+    assert st.count.dtype == torch.int32
+    for k, v in st.fields().items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(getattr(sj, k)),
+                                   rtol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------- step body ------
+
+def test_step_losses_and_gradients_match_jax(fixture):
+    cams_j, data_j, st_j = _jax_side(fixture)
+    cams_t, data_t, st_t = _torch_side(fixture)
+    cfg_j, cfg_t = _cfg(CFJ, RCJ), _cfg(CFT, RCT)
+    cam_idx, step = 1, 0
+    cap = st_j.capacity
+
+    def loss_j(params, tap, abs_tap):
+        return TRJ.compute_losses(st_j.replace(**params), cams_j, data_j,
+                                  cam_idx, step, cfg_j, tap,
+                                  absgrad_tap=abs_tap)
+
+    tap0 = jnp.zeros((cap, 2))
+    (lj, (parts_j, _)), gj = jax.jit(jax.value_and_grad(
+        loss_j, argnums=(0, 1, 2), has_aux=True))(st_j.params(), tap0, tap0)
+
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in st_t.params().items()}
+    tap = torch.zeros((cap, 2), requires_grad=True)
+    abst = torch.zeros((cap, 2), requires_grad=True)
+    lt, (parts_t, _) = TRT.compute_losses(st_t.replace(**params), cams_t,
+                                          data_t, cam_idx, step, cfg_t, tap,
+                                          absgrad_tap=abst)
+    keys = list(params)
+    gt = torch.autograd.grad(lt, [params[k] for k in keys] + [tap, abst],
+                             allow_unused=True)
+
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-4)
+    assert set(parts_t) == set(parts_j)
+    for k in parts_j:
+        np.testing.assert_allclose(float(parts_t[k].detach()), float(parts_j[k]),
+                                   rtol=1e-4, err_msg=k)
+    want = [gj[0][k] for k in keys] + [gj[1], gj[2]]
+    for name, a, b in zip(keys + ["tap", "absgrad_tap"], gt, want):
+        a = np.zeros(b.shape, np.float32) if a is None else a.numpy()
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-4, rtol=2e-2,
+                                   err_msg=name)
+
+
+def test_trainer_run_matches_jax(fixture):
+    cams_j, data_j, st_j = _jax_side(fixture)
+    cams_t, data_t, st_t = _torch_side(fixture)
+    tr_j = TRJ.Trainer(_cfg(CFJ, RCJ), cams_j, data_j, st_j)
+    tr_t = TRT.Trainer(_cfg(CFT, RCT), cams_t, data_t, st_t, device="cpu")
+    hj = tr_j.run(iterations=12, log=None)
+    ht = tr_t.run(iterations=12, log=None)
+    assert [r["step"] for r in ht] == [r["step"] for r in hj] == [4, 8, 12]
+    for rt, rj in zip(ht, hj):
+        np.testing.assert_allclose(rt["loss"], rj["loss"], rtol=2e-3)
+        assert rt["nonfinite_steps"] == rj["nonfinite_steps"] == 0
+        assert rt["num_gaussians"] == rj["num_gaussians"]
+        assert rt["capacity"] == rj["capacity"]
+    assert (tr_t.render_n, tr_t.tile_capacity, tr_t.cover_tiles) == (
+        tr_j.render_n, tr_j.tile_capacity, tr_j.cover_tiles)
+    agree, total = 0, 0
+    for k, v in tr_t.gaussians.params().items():
+        a, b = v.numpy(), np.asarray(getattr(tr_j.gaussians, k))
+        agree += np.sum(np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b))
+        total += a.size
+    assert agree / total >= 0.999, agree / total
+
+
+def test_refine_step_and_off_slice_options_raise(fixture):
+    cams_t, data_t, st_t = _torch_side(fixture)
+    cfg = _cfg(CFT, RCT)
+    for bad in (dataclasses.replace(cfg, train=dataclasses.replace(
+                    cfg.train, camera_opt=True)),
+                dataclasses.replace(cfg, loss=dataclasses.replace(
+                    cfg.loss, sdf_lambda=0.1))):
+        with pytest.raises(NotImplementedError):
+            TRT.Trainer(bad, cams_t, data_t, st_t, device="cpu")
+    early = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, adc=ADCT.ADCConfig(warmup=2)))
+    tr = TRT.Trainer(early, cams_t, data_t, st_t, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tr.run(iterations=4, log=None)
