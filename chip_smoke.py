@@ -1,24 +1,33 @@
-"""Drive the PyTorch/H100 port's main path on one card and hold each of its
-CUDA kernels against its plain PyTorch version.
+"""Drive the PyTorch/H100 port's main paths on one card and hold each of
+its CUDA kernels against its plain PyTorch version.
 
     python3 chip_smoke.py             # from the root of a checkout, one card
 
 Phases (any failure exits non-zero and prints no result):
  1. device and build: the card's name, power limit and SM clock; the nvcc
-    build of every kernel with its ptxas register / shared-memory report;
+    build of every kernel (one process per source, all at once) with its
+    ptxas register / shared-memory report;
  2. the bench scene (bench.py's workload, built with the port's own code):
     9 views at 640x480, 60,000 GT points rendered through K1, a 30,000-point
     perturbed initial state at capacity 131,072, the flat backend at tile 32;
- 3. kernels against plain versions on view 0's real table at the
-    trainer's initial pair budget and cover window;
- 4. the main path: Trainer.run for 60 steps (the bin cache is refreshed and
+ 3. K1/K2 against plain versions on view 0's real table at the trainer's
+    initial pair budget and cover window;
+ 4. the flat path: Trainer.run for 60 steps (the bin cache is refreshed and
     reused), with every launch counter zeroed just before and read after;
     the last 50 steps, one chunk at one shape, are timed;
- 5. kernels against plain versions again, on the trained state at the
-    shape those 50 steps ran, each timed with CUDA events beside its bound;
- 6. a torch.profiler trace of 5 more steps: device time by kernel and the
-    device's busy share of the step;
- 7. a {"kernels": [...]} line, the card line, and last the result line.
+ 5. K1/K2 against plain versions again, on the trained state at the shape
+    those 50 steps ran, each timed with CUDA events beside its bound;
+ 6. a torch.profiler trace of 5 more flat steps: device time by kernel and
+    the device's busy share of the step;
+ 7. the dense path on the same scene and initial state: the dn_splatter
+    preset's model and loss with backend="pallas" (tile 16, K 512, cover up
+    to 16 tiles, binary opacities), no bin cache. K3/K4 against plain
+    versions on view 0's real (T, K) table; Trainer.run for 60 steps with
+    the counters zeroed just before and read after, the last 50 timed;
+    K3/K4 checked again and timed at the timed steps' shape; a profile of
+    5 more dense steps;
+ 8. a {"kernels": [...]} line for all four kernels, the card line, and last
+    the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -164,6 +173,41 @@ def view_psnr(torch, tr, view):
         return float(-10.0 * torch.log10(mse + 1e-10))
 
 
+def timed_entries(source, specs):
+    """Time each (name, replaces, kernel, plain, bound_ms, bound_by) with
+    CUDA events and describe it as an entry of the {"kernels"} line;
+    launches and max_abs_err are filled in by the caller."""
+    entries = []
+    for name, replaces, fn, fn_plain, bound_ms, bound_by in specs:
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": None,
+            "ms": cuda_ms(fn, TIMED_LAUNCHES, WARM_LAUNCHES),
+            "plain_ms": cuda_ms(fn_plain, TIMED_LAUNCHES, WARM_LAUNCHES),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        log(f"{name}: {entries[-1]['ms']:.4f} ms, plain "
+            f"{entries[-1]['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+    return entries
+
+
+def check_columns(name, dtab, dtab_p):
+    """dtab held column by column at the column's own scale; returns the
+    largest absolute difference."""
+    dtab, dtab_p = dtab.reshape(-1, dtab.shape[-1]), dtab_p.reshape(-1, dtab.shape[-1])
+    err_col = (dtab - dtab_p).abs().amax(dim=0)
+    scale_col = dtab_p.abs().amax(dim=0)
+    nonzero = dtab_p.abs()[dtab_p != 0]
+    rel_col = (err_col / scale_col.clamp_min(1e-30)).tolist()
+    log(f"{name} max|d| dtab {float(err_col.max()):.3e}; median nonzero "
+        f"|dtab_plain| {float(nonzero.median()):.3e}; per column max|d| / "
+        f"max|dtab_plain| (limit {TOL_DTAB_REL:.0e}): "
+        + " ".join(f"{r:.1e}" for r in rel_col))
+    if not bool((err_col <= TOL_DTAB_REL * scale_col).all()):
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    return float(err_col.max())
+
+
 def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     """K1/K2 against their plain versions on view 0's real table at the
     given pair budget and cover window; with `timed`, also their times and
@@ -226,17 +270,7 @@ def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
         table, runs, count, g_out, g_logt, logt, carry, tx, ts, B)
     dtab = bwd()
     torch.cuda.synchronize()
-    dtab_p = bwd_p()
-    err_col = (dtab - dtab_p).abs().amax(dim=0)
-    scale_col = dtab_p.abs().amax(dim=0)
-    nonzero = dtab_p.abs()[dtab_p != 0]
-    err_dtab = float(err_col.max())
-    rel_col = (err_col / scale_col.clamp_min(1e-30)).tolist()
-    log(f"K2 max|d| dtab {err_dtab:.3e}; median nonzero |dtab_plain| "
-        f"{float(nonzero.median()):.3e}; per column max|d| / max|dtab_plain| "
-        f"(limit {TOL_DTAB_REL:.0e}): " + " ".join(f"{r:.1e}" for r in rel_col))
-    if not bool((err_col <= TOL_DTAB_REL * scale_col).all()):
-        raise RuntimeError("K2 disagrees with its plain version")
+    err_dtab = check_columns("K2", dtab, bwd_p())
     errs = {"fwd": max(err_out, err_alpha, err_carry), "bwd": err_dtab}
     if not timed:
         return errs, None
@@ -260,30 +294,102 @@ def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
         f"tile run {int(run_len.max())} blocks (tile {int(run_len.argmax())}),"
         f" mean {float(run_len.float().mean()):.2f}; pairs of dead slots "
         f"{dead_pairs}")
-
-    timings = {
-        "fwd": cuda_ms(fwd, TIMED_LAUNCHES, WARM_LAUNCHES),
-        "fwd_plain": cuda_ms(fwd_p, TIMED_LAUNCHES, WARM_LAUNCHES),
-        "bwd": cuda_ms(bwd, TIMED_LAUNCHES, WARM_LAUNCHES),
-        "bwd_plain": cuda_ms(bwd_p, TIMED_LAUNCHES, WARM_LAUNCHES),
-    }
-    log("kernel ms: " + json.dumps(timings))
-    src = "fusionsense_tpu_torch/csrc/flat_composite.cu"
-    return errs, [
-        {"name": "flat_composite_fwd (K1)", "route": "cuda", "source": src,
-         "replaces": "fusionsense_tpu/render/pallas_flat.py:52",
-         "launches": None, "max_abs_err": None,
-         "ms": timings["fwd"], "plain_ms": timings["fwd_plain"],
-         "bound_ms": fwd_bound, "bound_by": fwd_kind, "library_ms": None},
-        {"name": "flat_composite_bwd (K2)", "route": "cuda", "source": src,
-         "replaces": "fusionsense_tpu/render/pallas_flat.py:93",
-         "launches": None, "max_abs_err": None,
-         "ms": timings["bwd"], "plain_ms": timings["bwd_plain"],
-         "bound_ms": bwd_bound, "bound_by": bwd_kind, "library_ms": None},
-    ]
+    return errs, timed_entries("fusionsense_tpu_torch/csrc/flat_composite.cu", [
+        ("flat_composite_fwd (K1)", "fusionsense_tpu/render/pallas_flat.py:52",
+         fwd, fwd_p, fwd_bound, fwd_kind),
+        ("flat_composite_bwd (K2)", "fusionsense_tpu/render/pallas_flat.py:93",
+         bwd, bwd_p, bwd_bound, bwd_kind)])
 
 
-def profile_steps(torch, tr, step_ms, steps=5):
+def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
+    """K3/K4 against their plain versions on view 0's real (T, K) table at
+    the given K and cover window; with `timed`, also their times and
+    bounds."""
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.render import composite2 as C2
+    from fusionsense_tpu_torch.render.composite import TileGrid
+    from fusionsense_tpu_torch.render.rasterize import (
+        dense_table, gaussian_flat_normals,
+    )
+    from fusionsense_tpu_torch.train.trainer import patched_cfg
+
+    cfg = patched_cfg(tr.cfg, tile_capacity, cover_tiles)
+    rc = cfg.model.rasterize
+    cam = tr.camera.index(0)
+    n = tr.render_n
+    with torch.no_grad():
+        means, quats, scales, op, colors = (x[:n] for x in activated(tr.gaussians))
+        dt = dense_table(means, quats, scales, op, colors, cam, rc,
+                         normals=gaussian_flat_normals(quats, scales, means,
+                                                       cam.origin))
+    grid = TileGrid(cam.width, cam.height, rc.tile_size)
+    T, P, B = grid.num_tiles, grid.pixels_per_tile, rc.pallas_chunk
+    table, counts = dt.table.contiguous(), dt.counts.contiguous()
+    tile_ids = torch.arange(T, dtype=torch.int32, device=table.device)
+    _, K, W = table.shape
+    C, nc = W - 8, K // B
+    tx, ts = grid.tiles_x, rc.tile_size
+    log(f"K3/K4 at tile_capacity {tile_capacity}, cover {cover_tiles}: "
+        f"table {tuple(table.shape)}  P {P}  live pairs {int(counts.sum())}  "
+        f"full tiles {int((counts == K).sum())}  overflow {int(dt.bins.overflow)}")
+
+    fwd = lambda: C2.composite2_fwd_cuda(table, counts, tile_ids, tx, ts, B)  # noqa: E731
+    fwd_p = lambda: C2.composite2_fwd_plain(table, counts, tile_ids, tx, ts, B)  # noqa: E731
+    out, logt, carries, nused = fwd()
+    torch.cuda.synchronize()
+    out_p, logt_p, carries_p, nused_p = fwd_p()
+    if not torch.equal(nused, nused_p):
+        raise RuntimeError(f"K3's nused differs from the plain version's in "
+                           f"{int((nused != nused_p).sum())} tiles")
+    written = torch.arange(nc, device=table.device)[None, :] < nused[:, None]
+    err_out = float((out - out_p).abs().max())
+    err_alpha = float((torch.exp(logt) - torch.exp(logt_p)).abs().max())
+    err_carry = float((torch.exp(carries) - torch.exp(carries_p))
+                      .abs()[written].max())
+    log(f"K3 max|d|: out {err_out:.3e}  alpha {err_alpha:.3e}  written "
+        f"transmittance carries {err_carry:.3e}; nused equal "
+        f"(histogram {torch.bincount(nused.long(), minlength=nc + 1).tolist()})")
+    if not (err_out <= TOL_OUT and err_alpha <= TOL_ALPHA
+            and err_carry <= TOL_ALPHA):
+        raise RuntimeError("K3 disagrees with its plain version")
+
+    gen = torch.Generator(device=table.device).manual_seed(0)
+    g_out = G_SCALE * torch.randn((T, C, P), generator=gen, device=table.device)
+    g_logt = G_SCALE * torch.randn((T, P), generator=gen, device=table.device)
+    bwd = lambda: C2.composite2_bwd_cuda(  # noqa: E731
+        table, nused, tile_ids, g_out, g_logt, logt, carries, tx, ts, B)
+    bwd_p = lambda: C2.composite2_bwd_plain(  # noqa: E731
+        table, nused, tile_ids, g_out, g_logt, logt, carries, tx, ts, B)
+    dtab = bwd()
+    torch.cuda.synchronize()
+    err_dtab = check_columns("K4", dtab, bwd_p())
+    errs = {"fwd": max(err_out, err_alpha, err_carry), "bwd": err_dtab}
+    if not timed:
+        return errs, None
+
+    # work these inputs need: the live pairs of the chunks composited
+    live_pairs = int(torch.minimum(counts.long(), nused.long() * B).sum())
+    chunks = int(nused.sum())
+    f4 = 4
+    row_bytes = chunks * B * W * f4
+    fwd_bytes = (row_bytes + 2 * T * f4 + T * (C + 1) * P * f4
+                 + chunks * P * f4 + T * f4)
+    bwd_bytes = (row_bytes + 2 * T * f4 + T * (C + 2) * P * f4
+                 + chunks * P * f4 + T * K * W * f4)
+    fwd_bound, fwd_kind = bound(live_pairs * P * FWD_OPS, fwd_bytes)
+    bwd_bound, bwd_kind = bound(live_pairs * P * BWD_OPS, bwd_bytes)
+    log(f"composited chunks {chunks}/{T * nc}, live pairs in them "
+        f"{live_pairs}")
+    return errs, timed_entries("fusionsense_tpu_torch/csrc/composite2.cu", [
+        ("composite2_fwd (K3)",
+         "fusionsense_tpu/render/pallas_composite2.py:79",
+         fwd, fwd_p, fwd_bound, fwd_kind),
+        ("composite2_bwd (K4)",
+         "fusionsense_tpu/render/pallas_composite2.py:128",
+         bwd, bwd_p, bwd_bound, bwd_kind)])
+
+
+def profile_steps(torch, tr, name, step_ms, steps=5):
     """Device time by kernel over a few steps. The busy share divides the kernels' device time per step by the step time
     measured without the profiler, whose own host cost inflates wall time."""
     from torch.autograd import DeviceType
@@ -298,12 +404,73 @@ def profile_steps(torch, tr, step_ms, steps=5):
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     launches = sum(e.count for e in rows) / steps
-    log(f"profile: {steps} steps; device kernels {busy:.3f} ms/step in "
+    log(f"{name} profile: {steps} steps; device kernels {busy:.3f} ms/step in "
         f"{launches:.0f} launches/step; busy share of the unprofiled "
         f"{step_ms:.2f} ms step: {100 * busy / step_ms:.1f}%")
     for e in rows[:12]:
         log(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
             f"{e.count / steps:6.1f}/step  {e.key[:80]}")
+
+
+def dense_config():
+    """The dn_splatter preset with backend="pallas" at the bench's capacity,
+    trained in chunks of 50 steps; the dense trainer bins every step."""
+    from fusionsense_tpu_torch.presets import dn_splatter
+
+    cfg = dn_splatter("pallas")
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, capacity=CAPACITY),
+        train=dataclasses.replace(cfg.train, scan_chunk=50,
+                                  bin_refresh_steps=0))
+
+
+def train_path(torch, tr, name, counters, kernels):
+    """Trainer.run for WARM_STEPS, then to TRAIN_STEPS, timed, with every
+    launch counter zeroed just before and read just after. `kernels` names
+    the counters that must reach one launch per step. Returns the launch
+    counts, ms/step over the timed steps, and the shape they ran at."""
+    psnr_start = view_psnr(torch, tr, 0)
+    shapes = [(0, tr.tile_capacity, tr.cover_tiles)]
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.run(iterations=WARM_STEPS, log=log)
+    torch.cuda.synchronize()
+    # the timed steps are one chunk, so they all run at this shape
+    timed_shape = (tr.tile_capacity, tr.cover_tiles)
+    shapes.append((tr.step, *timed_shape))
+    t1 = time.perf_counter()
+    tr.run(iterations=TRAIN_STEPS, log=log)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    shapes.append((tr.step, tr.tile_capacity, tr.cover_tiles))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    psnr_end = view_psnr(torch, tr, 0)
+    last = tr.history[-1]
+    nonfinite = sum(r["nonfinite_steps"] for r in tr.history)
+    ms_step = (t2 - t1) * 1e3 / (TRAIN_STEPS - WARM_STEPS)
+    log(f"{name} train: {tr.step} steps; first {WARM_STEPS} took "
+        f"{t1 - t0:.2f} s; last {TRAIN_STEPS - WARM_STEPS}: {ms_step:.2f} "
+        f"ms/step; peak {peak_gb:.3f} GB; pairs_used {last['pairs_used']}; "
+        f"alive {last['num_gaussians']}; (step, tile_capacity, cover) "
+        f"{shapes}; overflow at the log boundaries "
+        f"{[(r['step'], r['tile_overflow']) for r in tr.history]}; view-0 "
+        f"PSNR {psnr_start:.3f} -> {psnr_end:.3f}; logged PSNR "
+        f"{last['psnr']:.3f}; launches {launches}")
+    if not (math.isfinite(last["loss"]) and nonfinite == 0):
+        raise RuntimeError(f"{name}: non-finite training: loss {last['loss']}, "
+                           f"{nonfinite} skipped steps")
+    if not psnr_end > psnr_start:
+        raise RuntimeError(f"{name}: PSNR did not improve: {psnr_start} -> "
+                           f"{psnr_end}")
+    if any(launches[k] < TRAIN_STEPS for k in kernels):
+        raise RuntimeError(f"{name}: the main path missed a kernel: {launches}")
+    if any(launches[f"{k}_plain"] for k in kernels):
+        raise RuntimeError(f"{name}: the main path ran a plain version: "
+                           f"{launches}")
+    return launches, ms_step, timed_shape
 
 
 def main():
@@ -314,7 +481,8 @@ def main():
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
-        from fusionsense_tpu_torch.kernels.build import SOURCES, build
+        from fusionsense_tpu_torch.kernels.build import SOURCES, build_all
+        from fusionsense_tpu_torch.render import composite2 as C2
         from fusionsense_tpu_torch.render import flat_composite as FC
         from fusionsense_tpu_torch.train.trainer import Trainer
     except ImportError as e:
@@ -331,7 +499,7 @@ def main():
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    built = [build(name) for name in SOURCES]
+    built = build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {list(SOURCES)}")
     for b in built:
         for line in b.log.splitlines():
@@ -341,63 +509,49 @@ def main():
     # 2. scene
     t0 = time.perf_counter()
     cams, data, init, cfg, gt_budget = build_scene(torch, dev)
+    init_dense = init.replace(**{k: v.clone() for k, v in init.fields().items()})
     tr = Trainer(cfg, cams, data, init, device=dev)
     torch.cuda.synchronize()
     log(f"scene: {time.perf_counter() - t0:.1f} s (GT budget {gt_budget}); "
         f"capacity {tr.gaussians.capacity}, render_n {tr.render_n}")
 
-    # 3. kernels against their plain versions, at the initial shapes
+    # 3. K1/K2 against their plain versions, at the initial shapes
     errs0, _ = check_kernels(torch, tr, tr.tile_capacity, tr.cover_tiles,
                              timed=False)
 
-    # 4. the main path
-    psnr_start = view_psnr(torch, tr, 0)
-    torch.cuda.reset_peak_memory_stats()
-    FC.reset_launch_counts()
-    t0 = time.perf_counter()
-    tr.run(iterations=WARM_STEPS, log=log)
-    torch.cuda.synchronize()
-    # the timed steps are one chunk, so they all run at this shape
-    timed_shape = (tr.tile_capacity, tr.cover_tiles)
-    t1 = time.perf_counter()
-    tr.run(iterations=TRAIN_STEPS, log=log)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = dict(FC.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    psnr_end = view_psnr(torch, tr, 0)
-    last = tr.history[-1]
-    nonfinite = sum(r["nonfinite_steps"] for r in tr.history)
-    ms_step = (t2 - t1) * 1e3 / (TRAIN_STEPS - WARM_STEPS)
-    log(f"train: {tr.step} steps; first {WARM_STEPS} took {t1 - t0:.2f} s; "
-        f"last {TRAIN_STEPS - WARM_STEPS}: {ms_step:.2f} ms/step; peak "
-        f"{peak_gb:.3f} GB; pairs_used {last['pairs_used']}; alive "
-        f"{last['num_gaussians']}; timed steps at tile_capacity "
-        f"{timed_shape[0]}, cover {timed_shape[1]}; after them "
-        f"{tr.tile_capacity}, {tr.cover_tiles}; view-0 PSNR {psnr_start:.3f} -> {psnr_end:.3f}; "
-        f"logged PSNR {last['psnr']:.3f}; launches {launches}")
-    if not (math.isfinite(last["loss"]) and nonfinite == 0):
-        raise RuntimeError(f"non-finite training: loss {last['loss']}, "
-                           f"{nonfinite} skipped steps")
-    if not psnr_end > psnr_start:
-        raise RuntimeError(f"PSNR did not improve: {psnr_start} -> {psnr_end}")
-    if (launches["flat_composite_fwd"] < TRAIN_STEPS
-            or launches["flat_composite_bwd"] < TRAIN_STEPS):
-        raise RuntimeError(f"the main path missed a kernel: {launches}")
-    if launches["flat_composite_fwd_plain"] or launches["flat_composite_bwd_plain"]:
-        raise RuntimeError(f"the main path ran a plain version: {launches}")
+    # 4. the flat path
+    flat_names = ("flat_composite_fwd", "flat_composite_bwd")
+    launches, ms_step, timed_shape = train_path(torch, tr, "flat", (FC, C2),
+                                                flat_names)
 
-    # 5. kernels against their plain versions at the timed steps' shape
+    # 5. K1/K2 against their plain versions at the timed steps' shape
     errs1, kernels = check_kernels(torch, tr, *timed_shape, timed=True)
     for k, key in zip(kernels, ("fwd", "bwd")):
         k["launches"] = launches[f"flat_composite_{key}"]
         k["max_abs_err"] = max(errs0[key], errs1[key])
 
-    # 6. where the step's device time goes
-    profile_steps(torch, tr, ms_step)
+    # 6. where the flat step's device time goes
+    profile_steps(torch, tr, "flat", ms_step)
 
-    # 7. results
-    print(json.dumps({"kernels": kernels}))
+    # 7. the dense path: K3/K4 at the initial shape, 60 steps, K3/K4 at the
+    # timed shape, a profile
+    tr_d = Trainer(dense_config(), cams, data, init_dense, device=dev)
+    log(f"dense: capacity {tr_d.gaussians.capacity}, render_n {tr_d.render_n}, "
+        f"tile_capacity {tr_d.tile_capacity}, cover {tr_d.cover_tiles}")
+    errs0, _ = check_dense_kernels(torch, tr_d, tr_d.tile_capacity,
+                                   tr_d.cover_tiles, timed=False)
+    dense_names = ("composite2_fwd", "composite2_bwd")
+    launches, ms_step, timed_shape = train_path(torch, tr_d, "dense",
+                                                (FC, C2), dense_names)
+    errs1, dense_kernels = check_dense_kernels(torch, tr_d, *timed_shape,
+                                               timed=True)
+    for k, key in zip(dense_kernels, ("fwd", "bwd")):
+        k["launches"] = launches[f"composite2_{key}"]
+        k["max_abs_err"] = max(errs0[key], errs1[key])
+    profile_steps(torch, tr_d, "dense", ms_step)
+
+    # 8. results
+    print(json.dumps({"kernels": kernels + dense_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

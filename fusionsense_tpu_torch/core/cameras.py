@@ -66,3 +66,12 @@ def backproject_depth(depth: torch.Tensor, camera: Camera) -> torch.Tensor:
     pts_cam = torch.stack([x, y, z], dim=-1)
     c2w = camera.camtoworld
     return pts_cam @ c2w[:3, :3].T + c2w[:3, 3]
+
+
+def pixel_centers(width: int, height: int, device=None) -> torch.Tensor:
+    """(H, W, 2) pixel-center coordinates (x, y)."""
+    dev = resolve_device(device)
+    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([gx, gy], dim=-1)

@@ -36,6 +36,8 @@
 //   so no global atomics are needed.
 // - Every row of out / logT, every carry and every dtab row is written:
 //   tiles without blocks get out = 0 and log T = 0, dead blocks zero rows.
+// - The alpha math and the forward and backward walks over one staged block
+//   live in composite_common.cuh, shared with K3/K4 (composite2.cu).
 //
 // Plain C entry points (bound with ctypes) launch on the caller's stream
 // and return cudaGetLastError().
@@ -43,47 +45,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr float kTEpsLog = -9.21f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kLogAlphaMax = -0.0010005003335835344f;   // log(0.999)
-constexpr int kGroup = 16;     // pairs per cross-warp reduction pass
-
-struct Pixel {
-  float px, py;
-};
-
-__device__ __forceinline__ Pixel pixel_of(int tile, int tiles_x,
-                                          int tile_size, int p) {
-  Pixel r;
-  r.px = (float)((tile % tiles_x) * tile_size) + (float)(p % tile_size) + 0.5f;
-  r.py = (float)((tile / tiles_x) * tile_size) + (float)(p / tile_size) + 0.5f;
-  return r;
-}
-
-// alpha of one table row at one pixel; NaN propagates as in the reference
-// (jnp.minimum), so a poisoned parameter still reaches the step guard.
-__device__ __forceinline__ float alpha_of(const float* row, Pixel px,
-                                          float* dx_out, float* dy_out,
-                                          bool* alive) {
-  const float dx = px.px - row[0];
-  const float dy = px.py - row[1];
-  const float power =
-      -(0.5f * row[2] * dx * dx + row[3] * dx * dy + 0.5f * row[4] * dy * dy) +
-      row[5];
-  const float clipped = (power > kLogAlphaMax) ? kLogAlphaMax : power;
-  const float alpha_raw = expf(clipped);
-  *alive = (alpha_raw >= kAlphaMin) && (power < kLogAlphaMax);
-  *dx_out = dx;
-  *dy_out = dy;
-  return (alpha_raw < kAlphaMin) ? 0.0f : alpha_raw;
-}
-
-__device__ __forceinline__ void stage_rows(float* s_tab, const float* src,
-                                           int n, int tid, int nthreads) {
-  for (int i = tid; i < n; i += nthreads) s_tab[i] = src[i];
-}
+using fs::kTEpsLog;
+using fs::Pixel;
 
 template <int C>
 __global__ void flat_fwd_kernel(const float* __restrict__ table,
@@ -100,7 +67,7 @@ __global__ void flat_fwd_kernel(const float* __restrict__ table,
   const int P = blockDim.x;
   const int b_begin = runs[t];
   const int b_end = runs[t + 1];
-  const Pixel px = pixel_of(t, tiles_x, tile_size, p);
+  const Pixel px = fs::pixel_of(t, tiles_x, tile_size, p);
 
   float log_t = 0.0f;
   float acc[C];
@@ -112,21 +79,9 @@ __global__ void flat_fwd_kernel(const float* __restrict__ table,
     // barrier too: nobody still reads the previous block's rows
     const int open = __syncthreads_or(log_t > kTEpsLog);
     if (blk_count[b] <= 0 || !open) continue;   // uniform over the CTA
-    stage_rows(s_tab, table + (size_t)b * B * W, B * W, p, P);
+    fs::stage_rows(s_tab, table + (size_t)b * B * W, B * W, p, P);
     __syncthreads();
-    float cum = 0.0f;
-    for (int j = 0; j < B; ++j) {
-      const float* row = s_tab + j * W;
-      float dx, dy;
-      bool alive;
-      const float alpha = alpha_of(row, px, &dx, &dy, &alive);
-      const float lg = log1pf(-alpha);
-      cum += lg;
-      const float w = alpha * expf(log_t + cum - lg);
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] += row[8 + c] * w;
-    }
-    log_t = log_t + cum;
+    fs::composite_block<C>(s_tab, B, px, log_t, acc);
   }
 #pragma unroll
   for (int c = 0; c < C; ++c) out[((size_t)t * C + c) * P + p] = acc[c];
@@ -144,19 +99,15 @@ __global__ void flat_bwd_kernel(const float* __restrict__ table,
                                 float* __restrict__ dtab, int tiles_x,
                                 int tile_size, int B) {
   constexpr int W = 8 + C;
-  constexpr int NRED = 6 + C;   // d_mx d_my d_ca d_cb d_cc d_lo d_chan[C]
   extern __shared__ float smem[];
   float* s_tab = smem;                 // B * W
-  float* s_part = smem + B * W;        // nwarps * kGroup * NRED
+  float* s_part = smem + B * W;        // fs::reduce_floats(P, C)
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int P = blockDim.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
-  const int nwarps = P >> 5;
   const int b_begin = runs[t];
   const int b_end = runs[t + 1];
-  const Pixel px = pixel_of(t, tiles_x, tile_size, p);
+  const Pixel px = fs::pixel_of(t, tiles_x, tile_size, p);
 
   float g[C];
 #pragma unroll
@@ -174,76 +125,11 @@ __global__ void flat_bwd_kernel(const float* __restrict__ table,
       for (int i = p; i < B * W; i += P) dst[i] = 0.0f;
       continue;
     }
-    stage_rows(s_tab, table + (size_t)b * B * W, B * W, p, P);
+    fs::stage_rows(s_tab, table + (size_t)b * B * W, B * W, p, P);
     __syncthreads();
     // exit log T of this block: the next block's carry, or the final log T
-    float L = (b + 1 < b_end) ? carry[(size_t)(b + 1) * P + p] : logt_fin;
-    float suffix_acc = S;
-
-    for (int g0 = B - kGroup; g0 >= 0; g0 -= kGroup) {
-      for (int jj = kGroup - 1; jj >= 0; --jj) {
-        const float* row = s_tab + (g0 + jj) * W;
-        float dx, dy;
-        bool alive;
-        const float alpha = alpha_of(row, px, &dx, &dy, &alive);
-        const float lg = log1pf(-alpha);
-        const float t_excl = expf(L - lg);
-        L -= lg;
-        const float w = alpha * t_excl;
-        float q = 0.0f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) q += row[8 + c] * g[c];
-        const float a = w * q;
-        const float suffix = suffix_acc;
-        suffix_acc += a;
-        const float inv1m = 1.0f / (1.0f - alpha);
-        const float d_alpha = q * t_excl - suffix * inv1m - glt * t_fin * inv1m;
-        const float d_power = alive ? alpha * d_alpha : 0.0f;
-        const float ca = row[2], cb = row[3], cc = row[4];
-        float v[NRED];
-        v[0] = d_power * (ca * dx + cb * dy);
-        v[1] = d_power * (cb * dx + cc * dy);
-        v[2] = d_power * (-0.5f * dx * dx);
-        v[3] = d_power * (-dx * dy);
-        v[4] = d_power * (-0.5f * dy * dy);
-        v[5] = d_power;
-#pragma unroll
-        for (int c = 0; c < C; ++c) v[6 + c] = w * g[c];
-        const bool any = __any_sync(0xffffffffu, alpha != 0.0f);
-        if (any) {
-#pragma unroll
-          for (int k = 0; k < NRED; ++k) {
-            float x = v[k];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              x += __shfl_xor_sync(0xffffffffu, x, off);
-            v[k] = x;
-          }
-        }
-        if (lane == 0) {
-          float* dstp = s_part + (warp * kGroup + jj) * NRED;
-#pragma unroll
-          for (int k = 0; k < NRED; ++k) dstp[k] = any ? v[k] : 0.0f;
-        }
-      }
-      __syncthreads();
-      for (int i = p; i < kGroup * NRED; i += P) {
-        const int jj = i / NRED;
-        const int k = i % NRED;
-        float sum = 0.0f;
-        for (int w8 = 0; w8 < nwarps; ++w8)
-          sum += s_part[(w8 * kGroup + jj) * NRED + k];
-        float* rowp = dst + (g0 + jj) * W;
-        if (k < 6) {
-          rowp[k] = sum;
-          if (k < 2) rowp[6 + k] = fabsf(sum);
-        } else {
-          rowp[k + 2] = sum;
-        }
-      }
-      __syncthreads();
-    }
-    S = suffix_acc;
+    const float L = (b + 1 < b_end) ? carry[(size_t)(b + 1) * P + p] : logt_fin;
+    S = fs::block_backward<C>(s_tab, s_part, dst, B, px, g, glt, t_fin, L, S);
   }
 }
 
@@ -271,8 +157,8 @@ extern "C" int fs_flat_composite_bwd(const float* table, const int* runs,
                                      int tile_size, int B, int C, void* stream) {
   if (C != 8) return (int)cudaErrorInvalidValue;
   const int P = tile_size * tile_size;
-  const size_t smem = ((size_t)B * (8 + C) +
-                       (size_t)(P / 32) * kGroup * (6 + C)) * sizeof(float);
+  const size_t smem =
+      ((size_t)B * (8 + C) + (size_t)fs::reduce_floats(P, C)) * sizeof(float);
   flat_bwd_kernel<8><<<num_ctas, P, smem, (cudaStream_t)stream>>>(
       table, runs, blk_count, g_out, g_logt, logt, carry, dtab,
       tiles_x, tile_size, B);

@@ -5,8 +5,10 @@ Each source compiles into its own shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/fusionsense_tpu_torch/<name>-<hash>.so
 
-at first use, keyed by a hash of the source and the flags, into build/ at
-the repository root (listed in .gitignore). Nothing here runs at import time.
+at first use, keyed by a hash of the flags, the source and every header
+under csrc/ that it includes (directly or through another header), into
+build/ at the repository root (listed in .gitignore). Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -15,14 +17,16 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "fusionsense_tpu_torch"
-SOURCES = ("flat_composite",)
+SOURCES = ("flat_composite", "composite2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,10 +49,30 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> list[Path]:
+    """csrc/<name>.cu and every csrc header it includes, transitively."""
+    seen: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = path.parent / inc
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Built:
@@ -67,6 +91,12 @@ def build(name: str) -> Built:
     log.write_text(proc.stdout)
     os.replace(tmp, so)        # atomic: concurrent builds never clash
     return Built(name, so, proc.stdout)
+
+
+def build_all(names=SOURCES) -> list[Built]:
+    """Build the given sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.lru_cache(maxsize=None)

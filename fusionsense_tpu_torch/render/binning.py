@@ -1,10 +1,11 @@
-"""Flat tile binning: depth-sorted (tile, gaussian) pairs laid out as
-block-aligned per-tile segments of one pair-budget array.
+"""Tile binning: depth-sorted (tile, gaussian) pairs, in the dense
+(num_tiles, tile_capacity) layout of the `jax`/`pallas` backends or as
+block-aligned per-tile segments of one pair-budget array (`flat`).
 
-Counterpart of the flat path of fusionsense_tpu/render/binning.py
-(FlatBins, auto_expand_budget, flat_bin_gaussians), with its 16-bit
+Counterpart of fusionsense_tpu/render/binning.py (TileBins, bin_gaussians,
+FlatBins, auto_expand_budget, flat_bin_gaussians), with its 16-bit
 log-depth key, the dense N*C and the compact expand-budget enumerations, the
-block maps and the landing map. Index rules differ between the frameworks: a
+block maps and the landing maps. Index rules differ between the frameworks: a
 JAX gather clamps and a `mode="drop"` scatter drops an out-of-range index,
 while torch raises (CPU) or asserts on the device (CUDA). Every index below
 is clipped or masked before use, and the drop scatter writes into one spare
@@ -20,6 +21,15 @@ import numpy as np
 import torch
 
 DEPTH_BITS = 16
+
+
+class TileBins(NamedTuple):
+    indices: torch.Tensor       # (T, K) int32 Gaussian per slot, -1 empty
+    mask: torch.Tensor          # (T, K) bool slot holds a live pair
+    overflow: torch.Tensor      # scalar: pairs dropped past a tile's K
+    truncated: torch.Tensor     # scalar: pairs dropped by the cover window
+    landing: torch.Tensor       # (N, C) pair -> flat tile * K + slot, -1 dropped
+    trunc_by_win: torch.Tensor  # (5,) counterfactual truncation telemetry
 
 
 class FlatBins(NamedTuple):
@@ -60,6 +70,54 @@ def _i32(x) -> torch.Tensor:
     return x.to(torch.int32)
 
 
+def _check_key_width(num_tiles: int) -> None:
+    if (num_tiles + 1) << DEPTH_BITS >= 2 ** 31:
+        raise ValueError("key overflow: too many tiles for a 32-bit key")
+
+
+class _PairGeometry(NamedTuple):
+    valid: torch.Tensor          # (N,) radius > 0
+    rank: torch.Tensor           # (N,) int64 16-bit log-depth rank
+    tx0: torch.Tensor            # (N,) int64 first covered tile column
+    ty0: torch.Tensor            # (N,) int64 first covered tile row
+    bw: torch.Tensor             # (N,) int64 covered tile columns
+    bh: torch.Tensor             # (N,) int64 covered tile rows
+    truncated: torch.Tensor      # pairs the win x win window drops
+    trunc_by_win: torch.Tensor   # (5,) the same at windows 1..5
+
+
+def _pair_geometry(mean2d, radius, depth, tile_size, tiles_x, tiles_y,
+                   win) -> _PairGeometry:
+    """Depth ranks, tile bounding boxes and cover-truncation telemetry, as
+    both layouts of the reference compute them."""
+    valid = radius > 0
+    big = torch.finfo(torch.float32).max
+    d_safe = torch.clamp_min(depth, 1e-12)
+    log_d = torch.log(torch.where(valid, d_safe, torch.full_like(d_safe, big)))
+    lo = torch.min(log_d)
+    hi = torch.max(torch.where(valid, log_d, torch.full_like(log_d, -big)))
+    span = torch.clamp_min(hi - lo, 1e-12)
+    n_q = (1 << DEPTH_BITS) - 1
+    rank = torch.clamp((log_d - lo) / span * n_q, 0, n_q).to(torch.int64)
+
+    def tile_of(v, hi_t):
+        return torch.clamp(torch.floor(v / tile_size), 0, hi_t - 1).to(torch.int64)
+
+    tx0 = tile_of(mean2d[:, 0] - radius, tiles_x)
+    ty0 = tile_of(mean2d[:, 1] - radius, tiles_y)
+    bw = tile_of(mean2d[:, 0] + radius, tiles_x) - tx0 + 1
+    bh = tile_of(mean2d[:, 1] + radius, tiles_y) - ty0 + 1
+    zero = torch.zeros_like(bw)
+    cover = torch.where(valid, torch.clamp_min(bw, 0) * torch.clamp_min(bh, 0), zero)
+
+    def trunc_at(w):
+        return torch.sum(cover - torch.where(
+            valid, torch.clamp_max(bw, w) * torch.clamp_max(bh, w), zero))
+
+    return _PairGeometry(valid, rank, tx0, ty0, bw, bh, trunc_at(win),
+                         torch.stack([trunc_at(w) for w in range(1, 6)]))
+
+
 @torch.no_grad()
 def flat_bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
                        depth: torch.Tensor, *, width: int, height: int,
@@ -85,39 +143,12 @@ def flat_bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
         raise ValueError("pair_budget must be a multiple of the kernel block")
     win = cover_window(max_tiles_per_gaussian)
     C = win * win
-    if (num_tiles + 1) << DEPTH_BITS >= 2 ** 31:
-        raise ValueError("key overflow: too many tiles for a 32-bit key")
+    _check_key_width(num_tiles)
     i64 = dict(dtype=torch.int64, device=dev)
-
-    valid = radius > 0
-    big = torch.finfo(torch.float32).max
-    d_safe = torch.clamp_min(depth, 1e-12)
-    log_d = torch.log(torch.where(valid, d_safe, torch.full_like(d_safe, big)))
-    lo = torch.min(log_d)
-    hi = torch.max(torch.where(valid, log_d, torch.full_like(log_d, -big)))
-    span = torch.clamp_min(hi - lo, 1e-12)
-    n_q = (1 << DEPTH_BITS) - 1
-    rank = torch.clamp((log_d - lo) / span * n_q, 0, n_q).to(torch.int64)
-
-    def tile_of(v, hi_t):
-        return torch.clamp(torch.floor(v / tile_size), 0, hi_t - 1).to(torch.int64)
-
-    tx0 = tile_of(mean2d[:, 0] - radius, tiles_x)
-    tx1 = tile_of(mean2d[:, 0] + radius, tiles_x)
-    ty0 = tile_of(mean2d[:, 1] - radius, tiles_y)
-    ty1 = tile_of(mean2d[:, 1] + radius, tiles_y)
-    bw = tx1 - tx0 + 1
-    bh = ty1 - ty0 + 1
-
+    pg = _pair_geometry(mean2d, radius, depth, tile_size, tiles_x, tiles_y, win)
+    valid, rank, tx0, ty0, bw, bh = (pg.valid, pg.rank, pg.tx0, pg.ty0,
+                                     pg.bw, pg.bh)
     zero = torch.zeros_like(bw)
-    cover = torch.where(valid, torch.clamp_min(bw, 0) * torch.clamp_min(bh, 0), zero)
-
-    def trunc_at(w):
-        return torch.sum(cover - torch.where(
-            valid, torch.clamp_max(bw, w) * torch.clamp_max(bh, w), zero))
-
-    truncated = trunc_at(win)
-    trunc_by_win = torch.stack([trunc_at(w) for w in range(1, 6)])
     dead_key = num_tiles << DEPTH_BITS
 
     use_compact = expand_budget is not None and expand_budget < N * C
@@ -252,5 +283,64 @@ def flat_bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
     return FlatBins(gauss_ids=_i32(gauss_ids), valid=valid_flat,
                     blk_tile=_i32(blk_tile), blk_first=_i32(blk_first),
                     blk_count=_i32(blk_count), landing=landing,
-                    overflow=_i32(overflow), truncated=_i32(truncated),
-                    trunc_by_win=_i32(trunc_by_win), used=_i32(used))
+                    overflow=_i32(overflow), truncated=_i32(pg.truncated),
+                    trunc_by_win=_i32(pg.trunc_by_win), used=_i32(used))
+
+
+@torch.no_grad()
+def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
+                  depth: torch.Tensor, *, width: int, height: int,
+                  tile_size: int, tile_capacity: int,
+                  max_tiles_per_gaussian: int = 16) -> TileBins:
+    """Dense (num_tiles, tile_capacity) layout: each tile keeps its nearest
+    tile_capacity pairs of one fused (tile << 16 | depth rank) key sort over
+    the static win x win cover; the rest count as `overflow`. No window
+    packing is involved, so any window side is accepted."""
+    dev = mean2d.device
+    N = mean2d.shape[0]
+    tiles_x = -(-width // tile_size)
+    tiles_y = -(-height // tile_size)
+    num_tiles = tiles_x * tiles_y
+    K = tile_capacity
+    win = max(1, int(math.isqrt(max_tiles_per_gaussian)))
+    C = win * win
+    _check_key_width(num_tiles)
+    i64 = dict(dtype=torch.int64, device=dev)
+    pg = _pair_geometry(mean2d, radius, depth, tile_size, tiles_x, tiles_y, win)
+
+    ds = torch.arange(win, **i64)
+    tile_id = ((pg.ty0[:, None, None] + ds[None, :, None]) * tiles_x
+               + pg.tx0[:, None, None] + ds[None, None, :])
+    pair_ok = (pg.valid[:, None, None] & (ds[None, :, None] < pg.bh[:, None, None])
+               & (ds[None, None, :] < pg.bw[:, None, None]))
+    key = torch.where(pair_ok, (tile_id << DEPTH_BITS) | pg.rank[:, None, None],
+                      torch.full_like(tile_id, num_tiles << DEPTH_BITS))
+    sorted_key, sorted_pair = torch.sort(_i32(key.reshape(-1)), stable=True)
+    sorted_tile = sorted_key >> DEPTH_BITS
+
+    bounds = torch.searchsorted(
+        sorted_tile, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev))
+    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
+    overflow = torch.sum(torch.clamp_min(counts - K, 0))
+    slot = torch.arange(K, **i64)[None, :]
+    idx = sorted_pair[torch.clamp_max(starts[:, None] + slot, N * C - 1)] // C
+    mask = slot < counts[:, None]
+    idx = torch.where(mask, idx, torch.full_like(idx, -1))
+
+    # landing: each sorted position's flat (tile * K + slot), found in sorted
+    # order (slot = distance from the segment head, by a running max), then
+    # scattered back to pair order (sorted_pair is a permutation)
+    i = torch.arange(N * C, **i64)
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          sorted_tile[1:] != sorted_tile[:-1]])
+    seg_head = torch.cummax(torch.where(is_start, i, torch.zeros_like(i)),
+                            0).values
+    slot_sorted = i - seg_head
+    flat_sorted = torch.where((slot_sorted < K) & (sorted_tile < num_tiles),
+                              sorted_tile * K + slot_sorted,
+                              torch.full_like(i, -1))
+    landing = torch.empty_like(flat_sorted)
+    landing[sorted_pair] = flat_sorted
+    return TileBins(indices=_i32(idx), mask=mask, overflow=_i32(overflow),
+                    truncated=_i32(pg.truncated), landing=_i32(landing.reshape(N, C)),
+                    trunc_by_win=_i32(pg.trunc_by_win))

@@ -1,4 +1,5 @@
-"""Gaussian projection: 3D means/covariances -> 2D screen conics (EWA).
+"""Gaussian projection: 3D means/covariances -> 2D screen conics (EWA), and
+the quadratic log-alpha coefficients of the dense `jax` backend.
 
 Counterpart of fusionsense_tpu/render/project.py: the same scalar-expanded
 arithmetic, batched over the Gaussians, differentiable through autograd.
@@ -101,3 +102,19 @@ def project_gaussians(means: torch.Tensor, quats: torch.Tensor,
     radius = torch.where(valid, radius, torch.zeros_like(radius))
     return Projected(mean2d=mean2d, depth=tz, conic=conic, radius=radius,
                      valid=valid, compensation=compensation)
+
+
+def alpha_coefficients(mean2d: torch.Tensor, conic: torch.Tensor,
+                       opacities: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """(N, 6) coefficients k with log alpha(p) = [x^2, xy, y^2, x, y, 1] . k,
+    the `jax` backend's per-Gaussian input. Culled rows get a constant term
+    of -1e10, so alpha underflows to exactly 0 and the backward stays
+    finite."""
+    mx, my = mean2d[:, 0], mean2d[:, 1]
+    ca, cb, cc = conic[:, 0], conic[:, 1], conic[:, 2]
+    log_op = torch.log(torch.clamp_min(opacities, 1e-12))
+    k1 = -(0.5 * ca * mx * mx + cb * mx * my + 0.5 * cc * my * my) + log_op
+    k1 = torch.where(valid, k1, torch.full_like(k1, -1e10))
+    return torch.stack([-0.5 * ca, -cb, -0.5 * cc, ca * mx + cb * my,
+                        cb * mx + cc * my, k1], -1)

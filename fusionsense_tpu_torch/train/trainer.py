@@ -1,11 +1,13 @@
 """The training loop: step body, per-view bin cache and host policies.
 
-Counterpart of fusionsense_tpu/train/trainer.py for the flat backend. JAX
-fuses `scan_chunk` steps into one lax.scan; here a chunk is a Python loop
-over the same step body, and the bin cache is chunk-local exactly as the
-scan carry is (every view rebins on its first visit of a chunk). The
-non-finite guard stays on the device (torch.where on a 0-d flag), so a step
-makes no host sync; the host reads metrics only at log boundaries.
+Counterpart of fusionsense_tpu/train/trainer.py, for all three rasterizer
+backends. JAX fuses `scan_chunk` steps into one lax.scan; here a chunk is a
+Python loop over the same step body. The flat backend's bin cache is
+chunk-local exactly as the scan carry is (every view rebins on its first
+visit of a chunk); the dense backends bin every step and ignore
+bin_refresh_steps, as the JAX trainer does. The non-finite guard stays on
+the device (torch.where on a 0-d flag), so a step makes no host sync; the
+host reads metrics only at log boundaries.
 
 Not ported yet (each raises or is absent): the ADC refine (the run raises
 when it reaches the first refine step, ROADMAP N1), make_fused_intervals /
@@ -251,7 +253,7 @@ def train_step(gaussians: GaussianState, opt: AdamState, stats: RefineStats,
                cache: Optional[BinCache] = None):
     """One training step -> (gaussians, opt, stats, metrics). `cfg` must
     carry the adaptive overrides (patched_cfg); `cache` is the chunk's
-    BinCache, or None to bin every step."""
+    BinCache (flat backend only), or None to bin every step."""
     groups = adam_groups or DEFAULT_GROUPS
     if cfg.model.binary_opacities:
         adc = cfg.train.adc
@@ -269,14 +271,17 @@ def train_step(gaussians: GaussianState, opt: AdamState, stats: RefineStats,
     params = {k: v.detach().requires_grad_(True) for k, v in old.items()}
     cap = gaussians.capacity
     dev = gaussians.device
-    # the flat backend surfaces gsplat's absgrad through table cols 6-7, so
-    # only the absolute tap is differentiated; the signed one stays zero
-    tap = torch.zeros((cap, 2), device=dev)
-    abs_tap = torch.zeros((cap, 2), device=dev, requires_grad=True)
+    # the kernel backends (pallas, flat) surface gsplat's absgrad through
+    # table cols 6-7, and densification reads it; the "jax" backend has no
+    # such tap and falls back to the signed screen-position gradient. Only
+    # the tap that is read is differentiated.
+    use_absgrad = cfg.model.rasterize.backend in ("pallas", "flat")
+    tap = torch.zeros((cap, 2), device=dev, requires_grad=not use_absgrad)
+    abs_tap = torch.zeros((cap, 2), device=dev, requires_grad=use_absgrad)
     loss, (_, aux) = compute_losses(
         gaussians.replace(**params), camera, data, cam_idx, step, cfg, tap,
         absgrad_tap=abs_tap, render_n=render_n, bins=fb)
-    leaves = list(params.values()) + [abs_tap]
+    leaves = list(params.values()) + [abs_tap if use_absgrad else tap]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, leaves)]
@@ -317,9 +322,9 @@ def train_step(gaussians: GaussianState, opt: AdamState, stats: RefineStats,
 
 class Trainer:
     """Chunks of steps, plus the capacity-bucket / render-prefix /
-    pair-budget / cover-window policies at log boundaries, as the JAX
-    Trainer runs them for the flat backend (the dense layout's K bump has no
-    flat counterpart)."""
+    tile-capacity / cover-window policies at log boundaries, as the JAX
+    Trainer runs them: the dense backends grow K by the overflow ladder, the
+    flat backend sizes its pair budget from the live pair total."""
 
     def __init__(self, cfg: ExperimentConfig, camera: Camera, data: TrainData,
                  gaussians: GaussianState, adam_groups: Optional[dict] = None,
@@ -373,11 +378,28 @@ class Trainer:
         else:
             self.render_n = min(self.render_n, self.gaussians.capacity)
 
+    @property
+    def _is_flat(self) -> bool:
+        return self.cfg.model.rasterize.backend == "flat"
+
+    def _maybe_bump_tile_capacity(self, overflow: int):
+        """Dense backends: grow K by 1.5x, rounded up to 128, when the pairs
+        dropped past K exceed tile_overflow_frac of the T * K slots."""
+        tc = self.cfg.train
+        if not tc.auto_tile_capacity or self._is_flat:
+            return
+        if overflow <= tc.tile_overflow_frac * self._grid_tiles * self.tile_capacity:
+            return
+        if self.tile_capacity >= tc.max_tile_capacity:
+            return
+        want = -(-int(self.tile_capacity * 1.5) // 128) * 128
+        self.tile_capacity = min(want, tc.max_tile_capacity)
+
     def _maybe_resize_pair_budget(self, used: int):
         """Size the flat pair budget from the block-aligned live pair total:
         1.25x headroom, 64 pairs/tile granularity, shrink with hysteresis."""
         tc = self.cfg.train
-        if not tc.auto_tile_capacity or used <= 0:
+        if not self._is_flat or not tc.auto_tile_capacity or used <= 0:
             return
         T = self._grid_tiles
         target = -(-used * 5 // (4 * T) // 64) * 64
@@ -427,7 +449,8 @@ class Trainer:
                     f"the ADC refine due at step {self.step + n} is not "
                     "ported (ROADMAP N1)")
             cfg_p = patched_cfg(cfg, self.tile_capacity, self.cover_tiles)
-            cache = BinCache(self.num_views, refresh) if refresh > 0 else None
+            cache = (BinCache(self.num_views, refresh)
+                     if refresh > 0 and self._is_flat else None)
             nonfinite = []
             for _ in range(n):
                 self.gaussians, self.opt, self.stats, metrics = train_step(
@@ -474,6 +497,7 @@ class Trainer:
                                                self.stats, new_capacity=cap))
                 if cfg.train.render_prefix:
                     self._recompact(int(n_alive))
+                self._maybe_bump_tile_capacity(int(ovf_h))
                 self._maybe_resize_pair_budget(int(pu_h))
                 self._maybe_adjust_cover_window(tbw_h)
                 self.history.append(rec)

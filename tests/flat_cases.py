@@ -1,12 +1,17 @@
-"""Random pair tables and block maps for the flat-compositor tests (shared
-by test_torch_flat_composite.py and test_torch_kernels.py; imports no JAX,
-so the card's tests can run where JAX is not installed).
+"""Random pair tables for the compositor tests: the flat layout's block maps
+(K1/K2) and the dense (T, K) layout's tile tables (K3/K4). Shared by
+test_torch_flat_composite.py, test_torch_composite2.py and
+test_torch_kernels.py; imports no JAX, so the card's tests can run where JAX
+is not installed.
 
-The cases cover a saturated tile (whole blocks skipped), a tile that owns no
-block, a live block with count 0, and the dummy tail."""
+The flat cases cover a saturated tile (whole blocks skipped), a tile that
+owns no block, a live block with count 0, and the dummy tail. The dense
+cases cover a saturated tile (early termination), a tile with count 0, a
+partly filled last chunk, and an offset slice of global tile ids."""
 import numpy as np
 import torch
 
+from fusionsense_tpu_torch.render import composite2 as C2
 from fusionsense_tpu_torch.render import flat_composite as FC
 
 B, TS, TILES_X, TILES_Y, C = 128, 16, 3, 2, 8
@@ -37,6 +42,24 @@ def maps(runs, dummy=2, zero_count_block=None, seed=0):
     return blk_tile, blk_first, blk_count
 
 
+def _fill_rows(rows, n, tile, rng, sat):
+    """Random live rows [0, n) of a (>= n, W) block for global tile `tile`."""
+    ox, oy = (tile % TILES_X) * TS, (tile // TILES_X) * TS
+    sig = rng.uniform(12.0, 20.0, (n, 2)) if sat else rng.uniform(1.5, 6.0, (n, 2))
+    rho = rng.uniform(-0.3, 0.3, n)
+    sxx, syy = sig[:, 0] ** 2, sig[:, 1] ** 2
+    sxy = rho * sig[:, 0] * sig[:, 1]
+    det = sxx * syy - sxy ** 2
+    rows[:n, 0] = ox + rng.uniform(-4, TS + 4, n)
+    rows[:n, 1] = oy + rng.uniform(-4, TS + 4, n)
+    rows[:n, 2] = syy / det
+    rows[:n, 3] = -sxy / det
+    rows[:n, 4] = sxx / det
+    op = rng.uniform(0.9, 0.99, n) if sat else rng.uniform(0.05, 0.9, n)
+    rows[:n, 5] = np.log(op)
+    rows[:n, 8:15] = rng.uniform(0.0, 1.0, (n, 7))
+
+
 def table(blk_tile, blk_count, saturate=(), seed=0):
     rng = np.random.RandomState(seed)
     nb = blk_tile.shape[0]
@@ -46,22 +69,7 @@ def table(blk_tile, blk_count, saturate=(), seed=0):
         t = blk_tile[b]
         if t >= T:
             continue
-        ox, oy = (t % TILES_X) * TS, (t // TILES_X) * TS
-        n = blk_count[b]
-        sat = t in saturate
-        sig = rng.uniform(12.0, 20.0, (n, 2)) if sat else rng.uniform(1.5, 6.0, (n, 2))
-        rho = rng.uniform(-0.3, 0.3, n)
-        sxx, syy = sig[:, 0] ** 2, sig[:, 1] ** 2
-        sxy = rho * sig[:, 0] * sig[:, 1]
-        det = sxx * syy - sxy ** 2
-        tab[b, :n, 0] = ox + rng.uniform(-4, TS + 4, n)
-        tab[b, :n, 1] = oy + rng.uniform(-4, TS + 4, n)
-        tab[b, :n, 2] = syy / det
-        tab[b, :n, 3] = -sxy / det
-        tab[b, :n, 4] = sxx / det
-        op = rng.uniform(0.9, 0.99, n) if sat else rng.uniform(0.05, 0.9, n)
-        tab[b, :n, 5] = np.log(op)
-        tab[b, :n, 8:15] = rng.uniform(0.0, 1.0, (n, 7))
+        _fill_rows(tab[b], blk_count[b], t, rng, t in saturate)
     return tab.reshape(nb * B, W)
 
 
@@ -85,6 +93,52 @@ def torch_fwd_bwd(tab, blk_tile, blk_count, g_out, g_alpha, device="cpu"):
     t = torch.tensor(tab, device=device, requires_grad=True)
     ms = [torch.tensor(a, device=device) for a in (blk_tile, blk_count)]
     out, alpha = FC.flat_composite(t, *ms, T, TILES_X, TS, B)
+    torch.autograd.backward([out, alpha], [torch.tensor(g_out, device=device),
+                                           torch.tensor(g_alpha, device=device)])
+    return (out.detach().cpu().numpy(), alpha.detach().cpu().numpy(),
+            t.grad.cpu().numpy())
+
+
+# ---------------------------------------------------------- dense ------
+
+DENSE_K = 3 * B           # three 128-pair chunks per tile
+TILES_Y_DENSE = 3         # the global grid of the offset-slice case
+
+DENSE_CASES = {
+    # tile 1 has count 0; tile 2 saturates in its first chunk; tile 0's and
+    # tile 5's last chunks are partly filled; tile ids are 0..T-1
+    "mixed": dict(counts=[300, 0, 384, 128, 250, 57], saturate=(2,),
+                  tile_lo=0),
+    # rows are tiles 3..8 of a 3 x 3 grid: the pixels follow tile_ids
+    "offset_slice": dict(counts=[200, 384, 0, 129, 384, 17], saturate=(4,),
+                         tile_lo=3),
+}
+
+
+def dense_case(name, seed=0):
+    """(table (T, K, W), counts (T,), tile_ids (T,), g_out (T, P, C),
+    g_alpha (T, P)) as numpy; dead slots carry log_op = -1e10."""
+    spec = DENSE_CASES[name]
+    rng = np.random.RandomState(seed)
+    counts = np.asarray(spec["counts"], np.int32)
+    tile_ids = np.arange(T, dtype=np.int32) + spec["tile_lo"]
+    tab = np.zeros((T, DENSE_K, W), np.float32)
+    tab[..., 5] = -1e10
+    for i in range(T):
+        _fill_rows(tab[i], counts[i], int(tile_ids[i]), rng,
+                   i in spec["saturate"])
+    rng = np.random.RandomState(1)
+    g_out = 0.01 * rng.normal(size=(T, P, C)).astype(np.float32)
+    g_alpha = 0.01 * rng.normal(size=(T, P)).astype(np.float32)
+    return tab, counts, tile_ids, g_out, g_alpha
+
+
+def torch_dense_fwd_bwd(tab, counts, tile_ids, g_out, g_alpha, device="cpu"):
+    """Port's composite2 forward + autograd backward on `device`."""
+    t = torch.tensor(tab, device=device, requires_grad=True)
+    out, alpha = C2.composite2(t, torch.tensor(counts, device=device),
+                               torch.tensor(tile_ids, device=device),
+                               TILES_X, TS, B)
     torch.autograd.backward([out, alpha], [torch.tensor(g_out, device=device),
                                            torch.tensor(g_alpha, device=device)])
     return (out.detach().cpu().numpy(), alpha.detach().cpu().numpy(),

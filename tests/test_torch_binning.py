@@ -1,13 +1,15 @@
-"""The port's flat_bin_gaussians against the JAX reference, exactly.
+"""The port's bin_gaussians (dense) and flat_bin_gaussians against the JAX
+reference, exactly.
 
 Scenes are built so every live Gaussian has a unique 16-bit depth rank half
 a quantum away from the rank boundaries (ROADMAP F1: the reference's
 sort_key_val leaves the order of equal ranks unspecified, and a 1-ulp log
 difference between frameworks must not move a rank). The cases are those
 of tests/test_binning_compact.py: dense and compact enumerations, with and
-without the landing map, a local tile shard and a truncating expand budget.
-Windows stay at 8 or less (F2); `used` is not compared in compact plus
-tile-local mode (F3).
+without the landing map, a local tile shard and a truncating expand budget. The dense layout is held on
+the same scenes at several cover windows and tile capacities, one of which
+overflows. Flat windows stay at 8 or less (F2); `used` is not compared in
+compact plus tile-local mode (F3).
 """
 import functools
 
@@ -17,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from fusionsense_tpu.render.binning import bin_gaussians as dense_j
 from fusionsense_tpu.render.binning import flat_bin_gaussians as bin_j
 from fusionsense_tpu_torch.render.binning import (
-    auto_expand_budget, cover_window, flat_bin_gaussians as bin_t,
+    auto_expand_budget, bin_gaussians as dense_t, cover_window,
+    flat_bin_gaussians as bin_t,
 )
 
 WIDTH, HEIGHT, TILE = 160, 96, 16
@@ -125,3 +129,36 @@ def test_wide_cover_window_refused():
     assert cover_window(64) == 8
     with pytest.raises(ValueError):
         cover_window(81)
+
+
+DENSE_FIELDS = ("indices", "mask", "landing", "overflow", "truncated",
+                "trunc_by_win")
+
+
+@pytest.mark.parametrize("cover,capacity", [(1, 128), (4, 128), (9, 64),
+                                            (16, 128), (100, 256)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_bins_match_jax(cover, capacity, seed):
+    """Window side 10 (cover 100) too: the dense layout packs no slots."""
+    sc = _scene(seed)
+    common = dict(width=WIDTH, height=HEIGHT, tile_size=TILE,
+                  tile_capacity=capacity, max_tiles_per_gaussian=cover)
+    bj = jax.jit(functools.partial(dense_j, **common))(
+        *[jnp.asarray(a) for a in sc])
+    bt = dense_t(*[torch.tensor(a) for a in sc], **common)
+    _equal(bj, bt, DENSE_FIELDS)
+
+
+def test_dense_bins_overflow_matches_jax():
+    sc = _scene(6, n=600, cull_frac=0.1)
+    common = dict(width=WIDTH, height=HEIGHT, tile_size=TILE,
+                  tile_capacity=16, max_tiles_per_gaussian=9)
+    bj = jax.jit(functools.partial(dense_j, **common))(
+        *[jnp.asarray(a) for a in sc])
+    bt = dense_t(*[torch.tensor(a) for a in sc], **common)
+    _equal(bj, bt, DENSE_FIELDS)
+    assert int(bt.overflow) > 0
+    # every kept pair lands in its slot, every dropped one nowhere
+    land = bt.landing.numpy()
+    kept = land[land >= 0]
+    assert len(np.unique(kept)) == len(kept) == int(bt.mask.sum())

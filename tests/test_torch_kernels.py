@@ -9,8 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from flat_cases import B, CASES, T, TILES_X, TS, case, torch_fwd_bwd
+from flat_cases import (
+    B, CASES, DENSE_CASES, T, TILES_X, TS, case, dense_case, torch_dense_fwd_bwd,
+    torch_fwd_bwd,
+)
 from fusionsense_tpu_torch.kernels import build
+from fusionsense_tpu_torch.render import composite2 as C2
 from fusionsense_tpu_torch.render import flat_composite as FC
 
 
@@ -52,6 +56,35 @@ def test_kernels_match_plain_on_card(card, name):
     assert_columns_close(got[2], want[2], 1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_kernels_match_plain_on_card(card, name):
+    """K3/K4 against the plain versions, with the flat cases' limits; nused
+    and the carries of the chunks composited too."""
+    args = dense_case(name)
+    C2.reset_launch_counts()
+    got = torch_dense_fwd_bwd(*args, device=card)
+    assert C2.LAUNCHES["composite2_fwd"] == 1
+    assert C2.LAUNCHES["composite2_bwd"] == 1
+    assert C2.LAUNCHES["composite2_fwd_plain"] == 0
+    want = torch_dense_fwd_bwd(*args, device="cpu")
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got[2], want[2], atol=1e-4, rtol=0)
+    assert_columns_close(got[2].reshape(-1, got[2].shape[-1]),
+                         want[2].reshape(-1, want[2].shape[-1]), 1e-4)
+    tab, counts, tile_ids = (torch.tensor(a) for a in args[:3])
+    fwd_k = C2.composite2_fwd_cuda(*(x.to(card) for x in (tab, counts, tile_ids)),
+                                   TILES_X, TS, B)
+    fwd_p = C2.composite2_fwd_plain(tab, counts, tile_ids, TILES_X, TS, B)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(fwd_k[3].cpu().numpy(), fwd_p[3].numpy())
+    np.testing.assert_allclose(fwd_k[1].cpu().numpy(), fwd_p[1].numpy(),
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(fwd_k[2].cpu().numpy(), fwd_p[2].numpy(),
+                               atol=1e-4, rtol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_version():
     FC.reset_launch_counts()
     tab, bt, _, bc, g_out, g_alpha = case("mixed")
@@ -59,6 +92,31 @@ def test_cpu_tensors_take_the_plain_version():
     assert FC.LAUNCHES == {"flat_composite_fwd": 0, "flat_composite_bwd": 0,
                            "flat_composite_fwd_plain": 1,
                            "flat_composite_bwd_plain": 1}
+
+
+def test_dense_cpu_tensors_take_the_plain_version():
+    C2.reset_launch_counts()
+    torch_dense_fwd_bwd(*dense_case("mixed"))
+    assert C2.LAUNCHES == {"composite2_fwd": 0, "composite2_bwd": 0,
+                           "composite2_fwd_plain": 1,
+                           "composite2_bwd_plain": 1}
+
+
+def test_dense_kernel_wrappers_refuse_what_they_cannot_take():
+    """No fallback: CPU tensors, a chunk that does not divide K, a channel
+    count other than 8 and wrong index types all raise before a launch."""
+    tab, counts, tile_ids, _, _ = dense_case("mixed")
+    tab, counts, tile_ids = (torch.tensor(a) for a in (tab, counts, tile_ids))
+    C2.reset_launch_counts()
+    bad = [(tab, counts, tile_ids, B), (tab[:, :200], counts, tile_ids, B),
+           (tab[..., :12], counts, tile_ids, B),
+           (tab, counts.long(), tile_ids, B)]
+    for t, c, i, b in bad:
+        with pytest.raises(ValueError):
+            C2.composite2_fwd_cuda(t, c, i, TILES_X, TS, b)
+    with pytest.raises(ValueError):
+        C2.composite2_fwd_plain(tab[:, :200], counts, tile_ids, TILES_X, TS, B)
+    assert C2.LAUNCHES["composite2_fwd"] == 0
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -78,3 +136,24 @@ def test_build_is_keyed_by_source_and_lazy():
     assert "build" in so.parts and so.name.startswith("flat_composite-")
     assert (build.CSRC / "flat_composite.cu").exists()
     assert build.load.cache_info().currsize == 0
+
+
+def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
+    """Every source is listed, each build input is found, and editing a
+    header that a source includes changes that source's build key (and
+    only that of the sources that include it)."""
+    assert set(build.SOURCES) == {"flat_composite", "composite2"}
+    header = "composite_common.cuh"
+    for name in build.SOURCES:
+        names = [p.name for p in build._inputs(name)]
+        assert names == [f"{name}.cu", header]
+    for p in build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    (tmp_path / "lone.cu").write_text("extern \"C\" int f() { return 0; }\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._target(n) for n in build.SOURCES + ("lone",)}
+    with open(tmp_path / header, "a") as f:
+        f.write("// edited\n")
+    after = {n: build._target(n) for n in build.SOURCES + ("lone",)}
+    assert all(before[n] != after[n] for n in build.SOURCES)
+    assert before["lone"] == after["lone"]

@@ -1,6 +1,8 @@
-"""The port's flat rasterizer against the JAX rasterize(backend="flat"):
-the flat cases of tests/test_pallas_composite.py, run on the CPU through the
-plain K1/K2, with the same numpy scene fed to both packages."""
+"""The port's rasterizer against the JAX rasterize, backend by backend: the
+cases of tests/test_pallas_composite.py, run on the CPU (the port through
+the plain K1/K2 and K3/K4, the JAX package with its Pallas kernels in
+interpret mode), with the same numpy scene fed to both packages; and the
+port's naive O(HWN) oracle against the JAX one."""
 import dataclasses
 
 import jax
@@ -13,7 +15,9 @@ from fusionsense_tpu.core.cameras import make_camera as make_camera_j
 from fusionsense_tpu.core.transforms import random_quats
 from fusionsense_tpu.render import RasterizeConfig as RCJ
 from fusionsense_tpu.render import rasterize as rasterize_j
+from fusionsense_tpu.render.naive import rasterize_naive as naive_j
 from fusionsense_tpu_torch.core.cameras import make_camera as make_camera_t
+from fusionsense_tpu_torch.render.naive import rasterize_naive as naive_t
 from fusionsense_tpu_torch.render.rasterize import RasterizeConfig as RCT
 from fusionsense_tpu_torch.render.rasterize import rasterize as rasterize_t
 
@@ -109,17 +113,18 @@ def _grads_t(sc, cam, cfg, target):
     tgt = torch.tensor(np.asarray(target))
     loss = (torch.mean((out.rgb - tgt) ** 2) + 0.01 * torch.mean(out.depth)
             + 0.05 * torch.mean(out.alpha))
-    gs = torch.autograd.grad(loss, ts + [tap, abst])
-    return [g.numpy() for g in gs]
+    # the "jax" backend has no absgrad tap: its gradient is zero, as in JAX
+    gs = torch.autograd.grad(loss, ts + [tap, abst], allow_unused=True)
+    return [np.zeros(x.shape, np.float32) if g is None else g.numpy()
+            for g, x in zip(gs, ts + [tap, abst])]
 
 
-@pytest.mark.parametrize("transpose", ["landing", "scatter"])
-def test_flat_backward_matches_jax(transpose):
+def _backward_matches_jax(kw):
     sc = scene(1, n=15)
     cj, ct = cams(32, 32)
     target = jnp.full((32, 32, 3), 0.4)
-    cfg_j = dataclasses.replace(CFG_J, flat_grad_transpose=transpose)
-    cfg_t = dataclasses.replace(CFG_T, flat_grad_transpose=transpose)
+    cfg_j = dataclasses.replace(CFG_J, **kw)
+    cfg_t = dataclasses.replace(CFG_T, **kw)
     tap = jnp.zeros((15, 2))
     g_j = jax.jit(jax.grad(_loss_j(cfg_j, cj, target),
                            argnums=tuple(range(7))))(
@@ -128,6 +133,11 @@ def test_flat_backward_matches_jax(transpose):
     for a, b in zip(g_t, g_j):
         assert np.all(np.isfinite(a))
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-4, rtol=2e-2)
+
+
+@pytest.mark.parametrize("transpose", ["landing", "scatter"])
+def test_flat_backward_matches_jax(transpose):
+    _backward_matches_jax(dict(flat_grad_transpose=transpose))
 
 
 def test_flat_absgrad_tap():
@@ -152,8 +162,9 @@ def test_flat_grad_transpose_scatter_matches_landing():
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(backend="jax"), dict(backend="pallas"),
-                                dict(blend_bf16=True),
+@pytest.mark.parametrize("kw", [dict(blend_bf16=True),
+                                dict(backend="pallas", blend_bf16=True),
+                                dict(backend="other"),
                                 dict(flat_grad_transpose="other")])
 def test_options_off_the_slice_raise(kw):
     sc = scene(0, n=5)
@@ -169,3 +180,72 @@ def test_inputs_off_the_requested_device_raise():
     with pytest.raises(ValueError):
         rasterize_t(*[torch.tensor(a) for a in sc], ct, CFG_T,
                     device="meta")
+
+
+# ------------------------------------------------- dense backends ------
+
+DENSE = ["jax", "pallas"]
+
+
+@pytest.mark.parametrize("backend", DENSE)
+def test_dense_forward_matches_jax(backend):
+    out_j, out_t = both(scene(0), 64, 48, dict(backend=backend))
+    _close_fwd(out_j, out_t)
+    for name in ("overflow", "truncated", "trunc_by_win"):
+        np.testing.assert_array_equal(getattr(out_t, name).numpy(),
+                                      np.asarray(getattr(out_j, name)))
+    np.testing.assert_array_equal(out_t.radius.numpy(), np.asarray(out_j.radius))
+    assert int(out_t.pairs_used) == 0
+
+
+@pytest.mark.parametrize("backend", DENSE)
+def test_dense_backward_matches_jax(backend):
+    """Gradients of every input and of both taps (signed and absolute)."""
+    _backward_matches_jax(dict(backend=backend))
+
+
+@pytest.mark.parametrize("backend", DENSE)
+def test_dense_saturated_stack_matches_jax(backend):
+    """300 opaque splats stacked on the axis: pallas stops compositing a
+    tile's chunks once it saturates, and the image must not change."""
+    out_j, out_t = both(stacked(), 32, 32,
+                        dict(backend=backend, tile_capacity=512))
+    assert int(out_t.overflow) == int(out_j.overflow) == 0
+    _close_fwd(out_j, out_t)
+
+
+def test_pallas_absgrad_tap():
+    sc = scene(3, n=12)
+    _, ct = cams(32, 32)
+    g = _grads_t(sc, ct, dataclasses.replace(CFG_T, backend="pallas"),
+                 np.full((32, 32, 3), 0.2, np.float32))
+    g_signed, g_abs = g[5], g[6]
+    assert np.all(np.isfinite(g_abs)) and g_abs.sum() > 0
+    assert np.all(g_abs >= np.abs(g_signed) - 1e-6)
+
+
+def test_naive_matches_jax():
+    sc = scene(5, n=30)
+    cj, ct = cams(40, 24)
+    cfg = dict(sh_degree=0)
+    out_j = jax.jit(lambda *a: naive_j(*a, cj, RCJ(**cfg)))(
+        *[jnp.asarray(a) for a in sc])
+    out_t = naive_t(*[torch.tensor(a) for a in sc], ct, RCT(**cfg),
+                    device="cpu")
+    for name in ("rgb", "alpha", "depth", "normal"):
+        np.testing.assert_allclose(out_t[name].numpy(), np.asarray(out_j[name]),
+                                   atol=1e-5, err_msg=name)
+
+
+def test_rasterize_without_cfg_uses_the_jax_default():
+    """No cfg means RasterizeConfig(), whose backend is "jax" in both
+    packages, and the default render agrees with the JAX one."""
+    import inspect
+
+    assert RCT() == RCT(**dataclasses.asdict(RCJ()))
+    assert inspect.signature(rasterize_t).parameters["cfg"].default == RCT()
+    sc = scene(0, n=20)
+    cj, ct = cams(48, 32)
+    out_j = jax.jit(lambda *a: rasterize_j(*a, cj))(*[jnp.asarray(a) for a in sc])
+    out_t = rasterize_t(*[torch.tensor(a) for a in sc], ct, device="cpu")
+    _close_fwd(out_j, out_t)

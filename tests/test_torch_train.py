@@ -1,7 +1,8 @@
-"""Losses, optimizer, ADC stats, compaction, the step body and Trainer.run of
-the port against the JAX package on a small flat-backend fixture: 3 views
-at 64x48, tile 16, capacity 2048, bin_refresh_steps = 2 * V. Both packages
-start from the same numpy state (convert.py)."""
+"""Losses, optimizer, ADC stats, compaction, the step body, Trainer.run and
+the presets of the port against the JAX package on a small fixture: 3 views
+at 64x48, tile 16, capacity 2048, bin_refresh_steps = 2 * V, the flat
+backend and the dense ones (which ignore the bin cache). Both packages start
+from the same numpy state (convert.py)."""
 import dataclasses
 
 import jax
@@ -39,9 +40,10 @@ RKW = dict(tile_size=16, tile_capacity=128, max_tiles_per_gaussian=9,
            sh_degree=3, backend="flat")
 
 
-def _cfg(mod, rc_cls, **train_kw):
+def _cfg(mod, rc_cls, backend="flat", **train_kw):
     return mod.ExperimentConfig(
-        model=mod.ModelConfig(sh_degree=3, rasterize=rc_cls(**RKW),
+        model=mod.ModelConfig(sh_degree=3,
+                              rasterize=rc_cls(**dict(RKW, backend=backend)),
                               capacity=2048, binary_opacities=False),
         train=mod.TrainConfig(iterations=12, scan_chunk=4, log_every=4,
                               bin_refresh_steps=2 * V, **train_kw),
@@ -307,11 +309,12 @@ def test_step_losses_and_gradients_match_jax(fixture):
                                    err_msg=name)
 
 
-def test_trainer_run_matches_jax(fixture):
+def _runs_match(fixture, backend):
     cams_j, data_j, st_j = _jax_side(fixture)
     cams_t, data_t, st_t = _torch_side(fixture)
-    tr_j = TRJ.Trainer(_cfg(CFJ, RCJ), cams_j, data_j, st_j)
-    tr_t = TRT.Trainer(_cfg(CFT, RCT), cams_t, data_t, st_t, device="cpu")
+    tr_j = TRJ.Trainer(_cfg(CFJ, RCJ, backend), cams_j, data_j, st_j)
+    tr_t = TRT.Trainer(_cfg(CFT, RCT, backend), cams_t, data_t, st_t,
+                       device="cpu")
     hj = tr_j.run(iterations=12, log=None)
     ht = tr_t.run(iterations=12, log=None)
     assert [r["step"] for r in ht] == [r["step"] for r in hj] == [4, 8, 12]
@@ -320,6 +323,7 @@ def test_trainer_run_matches_jax(fixture):
         assert rt["nonfinite_steps"] == rj["nonfinite_steps"] == 0
         assert rt["num_gaussians"] == rj["num_gaussians"]
         assert rt["capacity"] == rj["capacity"]
+        assert rt["tile_overflow"] == rj["tile_overflow"]
     assert (tr_t.render_n, tr_t.tile_capacity, tr_t.cover_tiles) == (
         tr_j.render_n, tr_j.tile_capacity, tr_j.cover_tiles)
     agree, total = 0, 0
@@ -328,6 +332,54 @@ def test_trainer_run_matches_jax(fixture):
         agree += np.sum(np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b))
         total += a.size
     assert agree / total >= 0.999, agree / total
+    return tr_t
+
+
+def test_trainer_run_matches_jax(fixture):
+    _runs_match(fixture, "flat")
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
+def test_dense_trainer_run_matches_jax(fixture, backend):
+    """12 steps with bin_refresh_steps > 0 left in the config, which the
+    dense trainer ignores in both packages. The fixture's dead slots pile
+    into the centre tiles, so the K ladder fires at each log boundary
+    (128 -> 256 -> 384 -> 640) in both."""
+    tr_t = _runs_match(fixture, backend)
+    assert tr_t.tile_capacity > RKW["tile_capacity"]
+
+
+def test_tile_capacity_ladder_matches_jax(fixture):
+    """The dense K ladder and the flat pair-budget policy, step by step: a
+    ladder fires only on dense backends, by 1.5x rounded up to 128, when
+    overflow exceeds tile_overflow_frac * T * K, and stops at the cap."""
+    cams_j, data_j, st_j = _jax_side(fixture)
+    cams_t, data_t, st_t = _torch_side(fixture)
+    for backend in ("jax", "pallas", "flat"):
+        tr_j = TRJ.Trainer(_cfg(CFJ, RCJ, backend), cams_j, data_j, st_j)
+        tr_t = TRT.Trainer(_cfg(CFT, RCT, backend), cams_t, data_t, st_t,
+                           device="cpu")
+        for overflow, used in ((0, 0), (30, 0), (31, 2000), (10_000, 9000),
+                               (10_000, 0), (10 ** 6, 40_000), (10 ** 6, 0),
+                               (10 ** 6, 100)):
+            for tr in (tr_j, tr_t):
+                tr._maybe_bump_tile_capacity(overflow)
+                tr._maybe_resize_pair_budget(used)
+            assert tr_t.tile_capacity == tr_j.tile_capacity, (backend, overflow)
+        want = 2048 if backend != "flat" else tr_j.tile_capacity
+        assert tr_t.tile_capacity == want
+
+
+@pytest.mark.parametrize("name", ["splatfacto", "dn-splatter",
+                                  "dn-splatter-big", "fusionsense"])
+@pytest.mark.parametrize("backend", ["jax", "pallas", "flat"])
+def test_presets_match_jax(name, backend):
+    from fusionsense_tpu import presets as PJ
+    from fusionsense_tpu_torch import presets as PT
+
+    assert set(PT.PRESETS) == set(PJ.PRESETS)
+    assert dataclasses.asdict(PT.PRESETS[name](backend)) == dataclasses.asdict(
+        PJ.PRESETS[name](backend))
 
 
 def test_refine_step_and_off_slice_options_raise(fixture):
