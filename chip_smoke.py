@@ -11,12 +11,18 @@ Phases (any failure exits non-zero and prints no result):
     9 views at 640x480, 60,000 GT points rendered through K1, a 30,000-point
     perturbed initial state at capacity 131,072, the flat backend at tile 32;
  3. K1/K2 against plain versions on view 0's real table at the trainer's
-    initial pair budget and cover window;
+    initial pair budget and cover window, then each of their five stages
+    against its plain twin on the same inputs (fwd_blocks' count of the
+    rows it staged against the plain cull's); the longest run, the rows
+    culled (dead slots among them) and the smallest skip-decision margin;
  4. the flat path: Trainer.run for 60 steps (the bin cache is refreshed and
     reused), with every launch counter zeroed just before and read after;
     the last 50 steps, one chunk at one shape, are timed;
- 5. K1/K2 against plain versions again, on the trained state at the shape
-    those 50 steps ran, each timed with CUDA events beside its bound;
+ 5. K1/K2 and their stages against plain versions again, on the trained
+    state at the shape those 50 steps ran, each timed with CUDA events
+    (K1/K2 beside their bounds); the two block passes timed again with the
+    cull defeated (the culled rows' log_op raised just above its bound, so
+    their alpha stays 0 and the outputs must not move);
  6. a torch.profiler trace of 5 more flat steps: device time by kernel and
     the device's busy share of the step;
  7. the dense path on the same scene and initial state: the dn_splatter
@@ -208,10 +214,96 @@ def check_columns(name, dtab, dtab_p):
     return float(err_col.max())
 
 
+def check_stages(torch, FC, inputs, culled, timed):
+    """Each CUDA stage of K1/K2 against its plain twin on the same inputs
+    (the kernels' own intermediate state); with `timed`, each stage's
+    time and the block passes' time with the cull defeated. Returns the
+    rows fwd_blocks staged in each block."""
+    table, runs, count, geo, g_out, g_logt, logt, carry, live = inputs
+    delta, acc, kept = FC.fwd_blocks_cuda(table, runs, count, *geo)
+    S = FC.bwd_suffix_cuda(acc, carry, live, runs, g_out)
+    torch.cuda.synchronize()
+    e = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    ex = lambda a, b: e(torch.exp(a), torch.exp(b))  # noqa: E731
+    rel = lambda a, b: e(a, b) / max(float(b.abs().max()), 1e-30)  # noqa: E731
+    stages = [
+        # name, args, {what: (error of cuda vs plain outputs, limit or None
+        # where the check raised already)}
+        ("fwd_blocks", (table, runs, count, *geo),
+         lambda k, p: {"exp(delta)": (ex(k[0], p[0]), TOL_ALPHA),
+                       "acc": (e(k[1], p[1]), TOL_OUT),
+                       "rows kept differing": (e(k[2], p[2]), 0)}),
+        ("fwd_scan", (delta, runs, count),
+         lambda k, p: {"exp(carry)": (ex(k[0], p[0]), TOL_ALPHA),
+                       "live flags differing": (e(k[1], p[1]), 0),
+                       "alpha": (ex(k[2], p[2]), TOL_ALPHA)}),
+        ("fwd_combine", (acc, carry, live, runs),
+         lambda k, p: {"out": (e(k, p), TOL_OUT)}),
+        ("bwd_suffix", (acc, carry, live, runs, g_out),
+         lambda k, p: {"S / max|S|": (rel(k, p), TOL_DTAB_REL)}),
+        ("bwd_blocks", (table, runs, live, g_out, g_logt, logt, carry, S,
+                        *geo),
+         lambda k, p: {"dtab": (check_columns("bwd_blocks", k, p), None)}),
+    ]
+    times = {}
+    for name, args, errs in stages:
+        cuda, plain = getattr(FC, f"{name}_cuda"), getattr(FC, f"{name}_plain")
+        got = cuda(*args)
+        torch.cuda.synchronize()
+        checked = errs(got, plain(*args))
+        log(f"stage {name} vs its plain twin: " + "  ".join(
+            f"{k} {v:.3e}" + ("" if lim is None else f" (limit {lim:.0e})")
+            for k, (v, lim) in checked.items()))
+        if any(lim is not None and not v <= lim
+               for v, lim in checked.values()):
+            raise RuntimeError(f"stage {name} disagrees with its plain twin")
+        if timed:
+            times[name] = cuda_ms(lambda: cuda(*args), TIMED_LAUNCHES,
+                                  WARM_LAUNCHES)
+    if timed:
+        log("stage ms: " + "  ".join(f"{k} {v:.4f}" for k, v in times.items()))
+        cull_off(torch, FC, inputs, culled, (delta, acc, S), times)
+    return kept
+
+
+def cull_off(torch, FC, inputs, culled, state, times):
+    """fwd_blocks and bwd_blocks on a copy of the table whose culled rows
+    have log_op raised from <= CULL_LOG_OP to just above it: alpha stays 0
+    at every pixel (power <= log_op < log(1/255)), so every output must
+    stay as it was, but no row is culled. The time against the stage times
+    is what the cull saves."""
+    table, runs, count, geo, g_out, g_logt, logt, carry, live = inputs
+    delta, acc, S = state
+    B = geo[-1]
+    nc = table.clone()
+    nc[culled.reshape(-1), 5] = FC.CULL_LOG_OP + 0.01
+    bwd_args = (runs, live, g_out, g_logt, logt, carry, S, *geo)
+    dtab = FC.bwd_blocks_cuda(table, *bwd_args)
+    d_nc, a_nc, k_nc = FC.fwd_blocks_cuda(nc, runs, count, *geo)
+    dtab_nc = FC.bwd_blocks_cuda(nc, *bwd_args)
+    torch.cuda.synchronize()
+    full = bool((k_nc[count > 0] == B).all())
+    err_d = float((torch.exp(d_nc) - torch.exp(delta)).abs().max())
+    err_a = float((a_nc - acc).abs().max())
+    log(f"cull defeated: every row of blocks with count > 0 staged: {full}; "
+        f"against the cull on, max|d| exp(delta) {err_d:.3e}  acc "
+        f"{err_a:.3e}  dtab {float((dtab_nc - dtab).abs().max()):.3e}")
+    check_columns("bwd_blocks, cull defeated", dtab_nc, dtab)
+    if not (full and err_d <= TOL_ALPHA and err_a <= TOL_OUT):
+        raise RuntimeError("the cull changed fwd_blocks' outputs")
+    off = {"fwd_blocks": cuda_ms(lambda: FC.fwd_blocks_cuda(
+               nc, runs, count, *geo), TIMED_LAUNCHES, WARM_LAUNCHES),
+           "bwd_blocks": cuda_ms(lambda: FC.bwd_blocks_cuda(nc, *bwd_args),
+                                 TIMED_LAUNCHES, WARM_LAUNCHES)}
+    log(f"cull defeated, {int(culled[count > 0].sum())} rows more staged: "
+        + "  ".join(f"{k} {v:.4f} ms (cull on {times[k]:.4f}, saves "
+                    f"{100 * (1 - times[k] / v):.1f}%)" for k, v in off.items()))
+
+
 def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     """K1/K2 against their plain versions on view 0's real table at the
-    given pair budget and cover window; with `timed`, also their times and
-    bounds."""
+    given pair budget and cover window, then each of their stages; with
+    `timed`, also their times and bounds."""
     from fusionsense_tpu_torch.gaussians.store import activated
     from fusionsense_tpu_torch.render import flat_composite as FC
     from fusionsense_tpu_torch.render.composite import TileGrid
@@ -244,16 +336,17 @@ def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
 
     fwd = lambda: FC.flat_composite_fwd_cuda(table, runs, count, *geo)  # noqa: E731
     fwd_p = lambda: FC.flat_composite_fwd_plain(table, runs, count, *geo)  # noqa: E731
-    out, logt, carry = fwd()
+    out, logt, carry, acc, live = fwd()
     torch.cuda.synchronize()
-    out_p, logt_p, carry_p = fwd_p()
+    out_p, logt_p, carry_p, _, live_p = fwd_p()
     err_out = float((out - out_p).abs().max())
     err_alpha = float((torch.exp(logt) - torch.exp(logt_p)).abs().max())
     err_carry = float((torch.exp(carry) - torch.exp(carry_p)).abs().max())
     log(f"K1 max|d|: out {err_out:.3e}  alpha {err_alpha:.3e}  "
-        f"transmittance carries {err_carry:.3e}")
+        f"transmittance carries {err_carry:.3e}; live flags differing "
+        f"{int((live != live_p).sum())}")
     if not (err_out <= TOL_OUT and err_alpha <= TOL_ALPHA
-            and err_carry <= TOL_ALPHA):
+            and err_carry <= TOL_ALPHA and not bool((live != live_p).any())):
         raise RuntimeError("K1 disagrees with its plain version")
 
     gen = torch.Generator(device=table.device).manual_seed(0)
@@ -264,20 +357,54 @@ def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     g_out[T] = 0.0
     g_logt[T] = 0.0
     tx, ts = grid.tiles_x, rc.tile_size
-    bwd = lambda: FC.flat_composite_bwd_cuda(  # noqa: E731
-        table, runs, count, g_out, g_logt, logt, carry, tx, ts, B)
-    bwd_p = lambda: FC.flat_composite_bwd_plain(  # noqa: E731
-        table, runs, count, g_out, g_logt, logt, carry, tx, ts, B)
+    bwd_args = (table, runs, g_out, g_logt, logt, carry, acc, live, tx, ts, B)
+    bwd = lambda: FC.flat_composite_bwd_cuda(*bwd_args)  # noqa: E731
+    bwd_p = lambda: FC.flat_composite_bwd_plain(*bwd_args)  # noqa: E731
     dtab = bwd()
     torch.cuda.synchronize()
     err_dtab = check_columns("K2", dtab, bwd_p())
     errs = {"fwd": max(err_out, err_alpha, err_carry), "bwd": err_dtab}
+    # the plain cull, row by row (nb, B); the kernel's own count per block
+    # is held against it in the fwd_blocks stage check
+    culled = FC.cull_rows(table, FC.block_tiles(runs, nb), tx, ts, B)
+    kept = check_stages(torch, FC, (table, runs, count, (tx, ts, B), g_out,
+                                    g_logt, logt, carry, live), culled, timed)
+
+    # the redesign's own numbers: the runs, the cull, the skip margin
+    run_len = runs[1:T + 1] - runs[:T]
+    staged_blocks = count > 0
+    staged = staged_blocks.repeat_interleave(B)
+    culled = culled.reshape(-1)
+    n_alive = int(tr.gaussians.num_alive)      # alive-first: dead slots follow
+    dead = fb.valid & (fb.gauss_ids >= n_alive)
+    cmax = carry.max(dim=1).values
+    margin = (cmax - FC.T_EPS_LOG).abs()[staged_blocks]
+    at = int(torch.nonzero(staged_blocks)[int(margin.argmin())])
+    log(f"by design fwd_blocks and bwd_blocks launch one CTA per block "
+        f"({nb}); the scans walk a run's per-block state, longest run "
+        f"{int(run_len.max())} blocks (tile {int(run_len.argmax())}), mean "
+        f"{float(run_len.float().mean()):.2f}")
+    n_staged = B * int(staged_blocks.sum())
+    kernel_culled = n_staged - int(kept[staged_blocks].sum())
+    if kernel_culled != int((culled & staged).sum()):
+        raise RuntimeError("fwd_blocks culled other rows than cull_rows")
+    log(f"cull: fwd_blocks staged {n_staged - kernel_culled} of the "
+        f"{n_staged} rows of blocks with count > 0, culling {kernel_culled} "
+        f"(per block as cull_rows); row by row, cull_rows culls "
+        f"{int((culled & dead).sum())} pairs of dead slots (of "
+        f"{int(dead.sum())}), {int((culled & staged & ~fb.valid).sum())} "
+        f"padding rows and {int((culled & fb.valid & ~dead).sum())} live "
+        f"pairs")
+    log(f"smallest skip-decision margin |max_p carry - ({FC.T_EPS_LOG})|: "
+        f"{float(margin.min()):.4e} at block {at}")
     if not timed:
         return errs, None
 
-    # work these inputs need: live pairs of the blocks that were composited
-    live = (count > 0) & (carry.max(dim=1).values > FC.T_EPS_LOG)
-    live_pairs = int(count[live].sum())
+    # work these inputs need: the pairs of the composited blocks that the
+    # cull cannot prove zero (PR 1-2's bound counted every pair of them)
+    live = live.bool()
+    live_pairs = int((fb.valid & live.repeat_interleave(B) & ~culled).sum())
+    ref_pairs = int(count[live].sum())
     live_blocks = int(live.sum())
     f4 = 4
     row_bytes = live_blocks * B * W * f4
@@ -287,13 +414,12 @@ def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
                  + nb * P * f4 + PB * W * f4)
     fwd_bound, fwd_kind = bound(live_pairs * P * FWD_OPS, fwd_bytes)
     bwd_bound, bwd_kind = bound(live_pairs * P * BWD_OPS, bwd_bytes)
-    run_len = runs[1:T + 1] - runs[:T]
-    n_alive = int(tr.gaussians.num_alive)      # alive-first: dead slots follow
-    dead_pairs = int((fb.valid & (fb.gauss_ids >= n_alive)).sum())
-    log(f"live blocks {live_blocks}/{nb}, live pairs {live_pairs}; longest "
-        f"tile run {int(run_len.max())} blocks (tile {int(run_len.argmax())}),"
-        f" mean {float(run_len.float().mean()):.2f}; pairs of dead slots "
-        f"{dead_pairs}")
+    ref = [bound(ref_pairs * P * ops, nbytes)[0]
+           for ops, nbytes in ((FWD_OPS, fwd_bytes), (BWD_OPS, bwd_bytes))]
+    log(f"live blocks {live_blocks}/{nb}: {ref_pairs} pairs, {live_pairs} "
+        f"of them not culled (the bound's work); pairs of dead slots "
+        f"{int(dead.sum())}; over all {ref_pairs} pairs (PR 1-2's bound) "
+        f"K1 {ref[0]:.4f}, K2 {ref[1]:.4f} ms")
     return errs, timed_entries("fusionsense_tpu_torch/csrc/flat_composite.cu", [
         ("flat_composite_fwd (K1)", "fusionsense_tpu/render/pallas_flat.py:52",
          fwd, fwd_p, fwd_bound, fwd_kind),
@@ -307,6 +433,7 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     bounds."""
     from fusionsense_tpu_torch.gaussians.store import activated
     from fusionsense_tpu_torch.render import composite2 as C2
+    from fusionsense_tpu_torch.render import flat_composite as FC
     from fusionsense_tpu_torch.render.composite import TileGrid
     from fusionsense_tpu_torch.render.rasterize import (
         dense_table, gaussian_flat_normals,
@@ -367,8 +494,15 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     if not timed:
         return errs, None
 
-    # work these inputs need: the live pairs of the chunks composited
-    live_pairs = int(torch.minimum(counts.long(), nused.long() * B).sum())
+    # work these inputs need: the pairs of the chunks composited that the
+    # flat compositor's row cull cannot prove zero (PR 2's bound counted
+    # every pair of them)
+    slot = torch.arange(K, device=table.device)[None, :]
+    composited = (slot < counts[:, None]) & (slot < nused[:, None] * B)
+    culled = FC.cull_rows(table.reshape(T * K, W), tile_ids, tx, ts,
+                          K).reshape(T, K)
+    live_pairs = int((composited & ~culled).sum())
+    ref_pairs = int(composited.sum())
     chunks = int(nused.sum())
     f4 = 4
     row_bytes = chunks * B * W * f4
@@ -378,8 +512,11 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
                  + chunks * P * f4 + T * K * W * f4)
     fwd_bound, fwd_kind = bound(live_pairs * P * FWD_OPS, fwd_bytes)
     bwd_bound, bwd_kind = bound(live_pairs * P * BWD_OPS, bwd_bytes)
-    log(f"composited chunks {chunks}/{T * nc}, live pairs in them "
-        f"{live_pairs}")
+    ref = [bound(ref_pairs * P * ops, nbytes)[0]
+           for ops, nbytes in ((FWD_OPS, fwd_bytes), (BWD_OPS, bwd_bytes))]
+    log(f"composited chunks {chunks}/{T * nc}: {ref_pairs} pairs, "
+        f"{live_pairs} of them not culled (the bound's work); over all "
+        f"{ref_pairs} (PR 2's bound) K3 {ref[0]:.4f}, K4 {ref[1]:.4f} ms")
     return errs, timed_entries("fusionsense_tpu_torch/csrc/composite2.cu", [
         ("composite2_fwd (K3)",
          "fusionsense_tpu/render/pallas_composite2.py:79",

@@ -10,18 +10,35 @@ variable-length runs of 128-pair blocks of one (pair_budget, 8 + C) table
   out (T+1, C, P), the final log-transmittance (T+1, P) and the log T
   entering every block, `carry` (nb, P). Row T is the dummy tile that owns
   the blocks past the live population.
-- K2 walks each tile's blocks in reverse, replays each live block from the
-  carries, and writes the table gradient dtab (PB, 8 + C): d mx, d my, d ca,
-  d cb, d cc, d log_op, |d mx|, |d my| (gsplat's absgrad, in the zero-valued
-  abs_tap columns) and d chan. Dead and dummy blocks get zero rows.
+- K2 writes the table gradient dtab (PB, 8 + C) of the live blocks: d mx,
+  d my, d ca, d cb, d cc, d log_op, |d mx|, |d my| (gsplat's absgrad, in the
+  zero-valued abs_tap columns) and d chan. Dead and dummy blocks get zero
+  rows.
 
-Both exist twice: a CUDA kernel (csrc/flat_composite.cu, one CTA per tile,
-one thread per pixel) and a plain tensor version with the same block
-semantics, looping over "block index within tile" and vectorised over
-tiles. A wrapper sends a CPU tensor to the plain version and a CUDA tensor
-to the kernel; there is no fallback between the two. Every row of out/logT
-is written by both (tiles without blocks get out = 0, log T = 0), which
-gives the reference's _mask_empty semantics by construction.
+A block entered at log T `L` adds exp(L) * acc_b to out and delta_b to
+log T, where acc_b (nb, C, P) and delta_b (nb, P) are the block's own blend
+and sum of log(1 - alpha) from T = 1. So each kernel is a few stages, none
+of which walks a run's blocks with the blending math (csrc/flat_composite.cu
+gives the design):
+
+  K1: fwd_blocks (delta, acc per block) -> fwd_scan (the skip rule: carry,
+      live, log T per tile) -> fwd_combine (out = sum of exp(carry) * acc)
+  K2: bwd_suffix (S per block, from acc and the cotangents) -> bwd_blocks
+      (each live block's gradient rows from its carry, exit log T and S)
+
+K1 returns (out, logT, carry, acc, live); K2 takes the last four back.
+Every stage exists twice: a CUDA kernel and a plain tensor version with the
+same semantics, vectorised over blocks or over tiles. A wrapper sends a CPU
+tensor to the plain version and a CUDA tensor to the kernel; there is no
+fallback between the two. Every row of out/logT is written by both (tiles
+without blocks get out = 0, log T = 0), which gives the reference's
+_mask_empty semantics by construction.
+
+The kernels leave out the rows cull_rows marks (dead slots and other rows
+that give alpha = 0 at every pixel of their tile); the plain versions take
+them, which adds exact zeros (csrc/flat_composite.cu states why). Both
+versions of fwd_blocks also return `kept`, the rows of each block that the
+kernel stages, so the kernel's cull is held against cull_rows.
 """
 from __future__ import annotations
 
@@ -34,9 +51,13 @@ ALPHA_MAX = 0.999
 ALPHA_MIN = 1.0 / 255.0
 LOG_ALPHA_MAX = math.log(ALPHA_MAX)
 T_EPS_LOG = -9.21
+CULL_LOG_OP = -15.0       # the cull's bounds, as in csrc/flat_composite.cu
+CULL_QUAD_MAX = 1e5
+_CHUNK = 64               # blocks a plain block stage takes at once
 
-# launches per entry point; chip_smoke.py zeroes these before driving the
-# main path and reads them after it
+# launches per entry point (one per K1 or K2 call, whatever its stages);
+# chip_smoke.py zeroes these before driving the main path and reads them
+# after it
 LAUNCHES = {"flat_composite_fwd": 0, "flat_composite_bwd": 0,
             "flat_composite_fwd_plain": 0, "flat_composite_bwd_plain": 0}
 
@@ -59,6 +80,33 @@ def tile_runs(blk_tile: torch.Tensor, num_tiles: int) -> torch.Tensor:
     non-decreasing, as flat_bin_gaussians lays it out."""
     q = torch.arange(num_tiles + 2, dtype=torch.int32, device=blk_tile.device)
     return torch.searchsorted(blk_tile.to(torch.int32), q, out_int32=True)
+
+
+def block_tiles(runs: torch.Tensor, nb: int) -> torch.Tensor:
+    """(nb,) int64 tile of each block, from the run boundaries."""
+    b = torch.arange(nb, dtype=runs.dtype, device=runs.device)
+    return torch.searchsorted(runs[:-1].contiguous(), b, right=True) - 1
+
+
+def cull_rows(table, blk_tile, tiles_x, tile_size, B=128):
+    """(nb, B) bool: rows that give alpha = 0 and alive = False at every
+    pixel of their block's tile: finite, log_op <= -15, a PSD conic, and the
+    conic's quadratic form bounded over the tile (csrc/flat_composite.cu
+    states the argument)."""
+    PB, W = table.shape
+    rows = table.reshape(PB // B, B, W)
+    mx, my = rows[..., 0], rows[..., 1]
+    ca, cb, cc, lo = rows[..., 2], rows[..., 3], rows[..., 4], rows[..., 5]
+    tile = blk_tile.long()
+    x0 = ((tile % tiles_x) * tile_size).to(torch.float32)[:, None] + 0.5
+    y0 = ((tile // tiles_x) * tile_size).to(torch.float32)[:, None] + 0.5
+    span = float(tile_size - 1)
+    X = torch.maximum((x0 - mx).abs(), (x0 + span - mx).abs())
+    Y = torch.maximum((y0 - my).abs(), (y0 + span - my).abs())
+    quad = 0.5 * ca * X * X + cb.abs() * X * Y + 0.5 * cc * Y * Y
+    return (torch.isfinite(rows).all(dim=-1) & (lo <= CULL_LOG_OP)
+            & (ca >= 0) & (cc >= 0) & (ca * cc >= cb * cb)
+            & (quad <= CULL_QUAD_MAX))
 
 
 # ------------------------------------------------------------ plain ------
@@ -94,62 +142,103 @@ def _runs_by_position(runs: torch.Tensor):
     return start, length, int(length.max()) if length.numel() else 0
 
 
-def flat_composite_fwd_plain(table, runs, blk_count, num_tiles, tiles_x,
-                             tile_size, B=128, blend_bf16=False):
-    """Plain K1: returns (out (T+1, C, P), logT (T+1, P), carry (nb, P))."""
-    _no_bf16(blend_bf16)
-    LAUNCHES["flat_composite_fwd_plain"] += 1
+def _at_position(start, length, k):
+    """Tiles whose run has a k-th block, and that block."""
+    tiles = torch.nonzero(k < length).squeeze(1)
+    return tiles, start[tiles] + k
+
+
+def fwd_blocks_plain(table, runs, blk_count, tiles_x, tile_size, B=128):
+    """Stage 1 of K1: every block with count > 0 composited by itself from
+    T = 1. Returns delta (nb, P), the block's sum of log(1 - alpha), and
+    acc (nb, C, P), its blend, zeros elsewhere; kept (nb,) int32, the rows
+    of each block with count > 0 that cull_rows keeps, 0 elsewhere."""
     PB, W = table.shape
-    C, P, nb, T1 = W - 8, tile_size * tile_size, PB // B, num_tiles + 1
+    C, P, nb = W - 8, tile_size * tile_size, PB // B
     tab = table.reshape(nb, B, W)
+    tile = block_tiles(runs, nb)
     f32 = dict(dtype=torch.float32, device=table.device)
-    out = torch.zeros((T1, C, P), **f32)
-    log_t = torch.zeros((T1, P), **f32)
-    carry = torch.zeros((nb, P), **f32)
-    start, length, max_len = _runs_by_position(runs)
-    for k in range(max_len):
-        tiles = torch.nonzero(k < length).squeeze(1)
-        blk = start[tiles] + k
-        lt = log_t[tiles]
-        carry[blk] = lt
-        live = (blk_count[blk] > 0) & (lt.max(dim=1).values > T_EPS_LOG)
-        tl, bl, lt = tiles[live], blk[live], lt[live]
-        if tl.numel() == 0:
-            continue
+    delta = torch.zeros((nb, P), **f32)
+    acc = torch.zeros((nb, C, P), **f32)
+    kept = torch.where(
+        blk_count > 0, B - cull_rows(table, tile, tiles_x, tile_size, B).sum(1),
+        0).to(torch.int32)
+    for bl in torch.nonzero(blk_count > 0).squeeze(1).split(_CHUNK):
         rows = tab[bl]
-        px, py = _pixel_xy(tl, tiles_x, tile_size, P)
+        px, py = _pixel_xy(tile[bl], tiles_x, tile_size, P)
         alpha, _, _ = _alpha_of_rows(rows, px, py)
         lg = torch.log1p(-alpha)
         cum = torch.cumsum(lg, dim=1)
-        t_excl = torch.exp(lt[:, None, :] + cum - lg)
-        w = alpha * t_excl
-        out[tl] += torch.einsum("tbc,tbp->tcp", rows[..., 8:], w)
-        log_t[tl] = lt + cum[:, -1, :]
-    return out, log_t, carry
+        w = alpha * torch.exp(cum - lg)
+        acc[bl] = torch.einsum("tbc,tbp->tcp", rows[..., 8:], w)
+        delta[bl] = cum[:, -1, :]
+    return delta, acc, kept
 
 
-def flat_composite_bwd_plain(table, runs, blk_count, g_out, g_logt, logt,
-                             carry, tiles_x, tile_size, B=128,
-                             blend_bf16=False):
-    """Plain K2: g_out (T+1, C, P), g_logt/logt (T+1, P), carry (nb, P)
-    -> dtab (PB, 8 + C)."""
-    _no_bf16(blend_bf16)
-    LAUNCHES["flat_composite_bwd_plain"] += 1
-    PB, W = table.shape
-    P, nb, T1 = tile_size * tile_size, PB // B, logt.shape[0]
-    tab = table.reshape(nb, B, W)
-    dtab = torch.zeros((nb, B, W), dtype=torch.float32, device=table.device)
-    S = torch.zeros((T1, P), dtype=torch.float32, device=table.device)
-    t_fin = torch.exp(logt)
+def fwd_scan_plain(delta, runs, blk_count):
+    """Stage 2 of K1: the skip rule along each run. Returns carry (nb, P),
+    the log T entering each block; live (nb,) int32, whether the block is
+    composited; logT (T+1, P), each tile's final log T."""
+    nb, P = delta.shape
     start, length, max_len = _runs_by_position(runs)
+    log_t = torch.zeros((start.numel(), P), dtype=torch.float32,
+                        device=delta.device)
+    carry = torch.zeros((nb, P), dtype=torch.float32, device=delta.device)
+    live = torch.zeros((nb,), dtype=torch.int32, device=delta.device)
+    for k in range(max_len):
+        tiles, blk = _at_position(start, length, k)
+        lt = log_t[tiles]
+        carry[blk] = lt
+        lv = (blk_count[blk] > 0) & (lt.max(dim=1).values > T_EPS_LOG)
+        live[blk] = lv.to(torch.int32)
+        log_t[tiles[lv]] = lt[lv] + delta[blk[lv]]
+    return carry, live, log_t
+
+
+def fwd_combine_plain(acc, carry, live, runs):
+    """Stage 3 of K1: out (T+1, C, P), the sum over each run's live blocks
+    of exp(carry) * acc, in order."""
+    _, C, P = acc.shape
+    start, length, max_len = _runs_by_position(runs)
+    out = torch.zeros((start.numel(), C, P), dtype=torch.float32,
+                      device=acc.device)
+    for k in range(max_len):
+        tiles, blk = _at_position(start, length, k)
+        lv = live[blk] > 0
+        tl, bl = tiles[lv], blk[lv]
+        out[tl] += torch.exp(carry[bl])[:, None, :] * acc[bl]
+    return out
+
+
+def bwd_suffix_plain(acc, carry, live, runs, g_out):
+    """Stage 1 of K2: S (nb, P), the sum over each block's later live blocks
+    of exp(carry) * sum_c g_out[c] * acc[c] (each block's sum of w * q)."""
+    nb, _, P = acc.shape
+    start, length, max_len = _runs_by_position(runs)
+    s = torch.zeros((start.numel(), P), dtype=torch.float32, device=acc.device)
+    S = torch.zeros((nb, P), dtype=torch.float32, device=acc.device)
     for k in reversed(range(max_len)):
-        tiles = torch.nonzero(k < length).squeeze(1)
-        blk = start[tiles] + k
-        lin = carry[blk]
-        live = (blk_count[blk] > 0) & (lin.max(dim=1).values > T_EPS_LOG)
-        tl, bl, lin = tiles[live], blk[live], lin[live]
-        if tl.numel() == 0:
-            continue
+        tiles, blk = _at_position(start, length, k)
+        S[blk] = s[tiles]
+        lv = live[blk] > 0
+        tl, bl = tiles[lv], blk[lv]
+        s[tl] += torch.exp(carry[bl]) * torch.einsum("tcp,tcp->tp",
+                                                     g_out[tl], acc[bl])
+    return S
+
+
+def bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
+                     tiles_x, tile_size, B=128):
+    """Stage 2 of K2: dtab (PB, 8 + C) of the live blocks, each replayed from
+    its carry with its suffix S; dead blocks get zeros."""
+    PB, W = table.shape
+    P, nb = tile_size * tile_size, PB // B
+    tab = table.reshape(nb, B, W)
+    tile = block_tiles(runs, nb)
+    dtab = torch.zeros((nb, B, W), dtype=torch.float32, device=table.device)
+    t_fin = torch.exp(logt)
+    for bl in torch.nonzero(live > 0).squeeze(1).split(_CHUNK):
+        tl = tile[bl]
         rows = tab[bl]
         chan = rows[..., 8:]
         go = g_out[tl]                                      # (t, C, P)
@@ -159,12 +248,12 @@ def flat_composite_bwd_plain(table, runs, blk_count, g_out, g_logt, logt,
         alpha, alive, (dx, dy, ca, cb, cc) = _alpha_of_rows(rows, px, py)
         lg = torch.log1p(-alpha)
         cum = torch.cumsum(lg, dim=1)
-        t_excl = torch.exp(lin[:, None, :] + cum - lg)
+        t_excl = torch.exp(carry[bl][:, None, :] + cum - lg)
         w = alpha * t_excl
         q = torch.einsum("tbc,tcp->tbp", chan, go)
         a_term = w * q
         cum_a = torch.cumsum(a_term, dim=1)
-        suffix = (cum_a[:, -1:, :] - cum_a) + S[tl][:, None, :]
+        suffix = (cum_a[:, -1:, :] - cum_a) + S[bl][:, None, :]
         inv1m = 1.0 / (1.0 - alpha)
         d_alpha = q * t_excl - suffix * inv1m - glt * tf * inv1m
         d_power = torch.where(alive, alpha * d_alpha, torch.zeros_like(alpha))
@@ -180,16 +269,44 @@ def flat_composite_bwd_plain(table, runs, blk_count, g_out, g_logt, logt,
         dtab[bl] = torch.cat(
             [torch.stack([d_mx, d_my, d_ca, d_cb, d_cc, d_lo, d_mx.abs(),
                           d_my.abs()], -1), d_chan], -1)
-        S[tl] += torch.sum(a_term, dim=1)
     return dtab.reshape(PB, W)
+
+
+def flat_composite_fwd_plain(table, runs, blk_count, num_tiles, tiles_x,
+                             tile_size, B=128, blend_bf16=False):
+    """Plain K1: returns (out (T+1, C, P), logT (T+1, P), carry (nb, P),
+    acc (nb, C, P), live (nb,) int32)."""
+    _no_bf16(blend_bf16)
+    LAUNCHES["flat_composite_fwd_plain"] += 1
+    delta, acc, _ = fwd_blocks_plain(table, runs, blk_count, tiles_x,
+                                     tile_size, B)
+    carry, live, logt = fwd_scan_plain(delta, runs, blk_count)
+    return fwd_combine_plain(acc, carry, live, runs), logt, carry, acc, live
+
+
+def flat_composite_bwd_plain(table, runs, g_out, g_logt, logt, carry, acc,
+                             live, tiles_x, tile_size, B=128,
+                             blend_bf16=False):
+    """Plain K2: g_out (T+1, C, P), g_logt/logt (T+1, P) and K1's carry, acc
+    and live -> dtab (PB, 8 + C)."""
+    _no_bf16(blend_bf16)
+    LAUNCHES["flat_composite_bwd_plain"] += 1
+    S = bwd_suffix_plain(acc, carry, live, runs, g_out)
+    return bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
+                            tiles_x, tile_size, B)
 
 
 # ----------------------------------------------------------- kernels ------
 
 _C_SUPPORTED = 8
+_FNS = {   # C entry point -> (pointer arguments, int arguments)
+    "fs_flat_fwd_blocks": (6, 6), "fs_flat_fwd_scan": (6, 2),
+    "fs_flat_fwd_combine": (5, 3), "fs_flat_bwd_suffix": (6, 3),
+    "fs_flat_bwd_blocks": (9, 6),
+}
 
 
-def _check_launch(table, runs, blk_count, tile_size, B):
+def _check_geometry(table, tile_size, B):
     PB, W = table.shape
     P = tile_size * tile_size
     if W - 8 != _C_SUPPORTED:
@@ -201,18 +318,20 @@ def _check_launch(table, runs, blk_count, tile_size, B):
     if B % 16 or B > 256 or PB % B:
         raise ValueError(f"block {B}: needs a multiple of 16, at most 256, "
                          "dividing the pair budget")
-    nb = PB // B
-    for name, t, dt, shape in (("table", table, torch.float32, (PB, W)),
-                               ("runs", runs, torch.int32, None),
-                               ("blk_count", blk_count, torch.int32, (nb,))):
-        if not t.is_cuda or t.device != table.device:
-            raise ValueError(f"{name} must be on {table.device}")
+
+
+def _check(device, *specs):
+    """Each spec (name, tensor, dtype, shape) must be a contiguous tensor of
+    that dtype and shape on the CUDA device `device`."""
+    for name, t, dt, shape in specs:
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name} must be on a CUDA device, {device}")
         if t.dtype != dt:
             raise ValueError(f"{name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
 
 
@@ -222,10 +341,10 @@ def _lib():
     lib = load("flat_composite")
     if not getattr(lib, "_fs_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fs_flat_composite_fwd.argtypes = [vp] * 6 + [ci] * 5 + [vp]
-        lib.fs_flat_composite_fwd.restype = ci
-        lib.fs_flat_composite_bwd.argtypes = [vp] * 8 + [ci] * 5 + [vp]
-        lib.fs_flat_composite_bwd.restype = ci
+        for name, (n_ptr, n_int) in _FNS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+            fn.restype = ci
         lib._fs_typed = True
     return lib
 
@@ -235,68 +354,131 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def _launch(name, tensors, ints):
+    dev = tensors[0].device
+    err = getattr(_lib(), name)(*(t.data_ptr() for t in tensors), *ints,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+
+
+_F32, _I32 = torch.float32, torch.int32
+
+
+def fwd_blocks_cuda(table, runs, blk_count, tiles_x, tile_size, B=128):
+    """Stage 1 of K1 on the card; same returns as fwd_blocks_plain."""
+    _check_geometry(table, tile_size, B)
+    PB, W = table.shape
+    C, P, nb = W - 8, tile_size * tile_size, PB // B
+    _check(table.device, ("table", table, _F32, (PB, W)),
+           ("runs", runs, _I32, (runs.numel(),)),
+           ("blk_count", blk_count, _I32, (nb,)))
+    delta = torch.empty((nb, P), dtype=_F32, device=table.device)
+    acc = torch.empty((nb, C, P), dtype=_F32, device=table.device)
+    kept = torch.empty((nb,), dtype=_I32, device=table.device)
+    _launch("fs_flat_fwd_blocks", (table, runs, blk_count, delta, acc, kept),
+            (nb, runs.numel() - 1, tiles_x, tile_size, B, C))
+    return delta, acc, kept
+
+
+def fwd_scan_cuda(delta, runs, blk_count):
+    """Stage 2 of K1 on the card; same returns as fwd_scan_plain."""
+    nb, P = delta.shape
+    T1 = runs.numel() - 1
+    _check(delta.device, ("delta", delta, _F32, (nb, P)),
+           ("runs", runs, _I32, (T1 + 1,)),
+           ("blk_count", blk_count, _I32, (nb,)))
+    carry = torch.empty((nb, P), dtype=_F32, device=delta.device)
+    live = torch.empty((nb,), dtype=_I32, device=delta.device)
+    logt = torch.empty((T1, P), dtype=_F32, device=delta.device)
+    _launch("fs_flat_fwd_scan", (delta, runs, blk_count, carry, live, logt),
+            (T1, P))
+    return carry, live, logt
+
+
+def fwd_combine_cuda(acc, carry, live, runs):
+    """Stage 3 of K1 on the card; same returns as fwd_combine_plain."""
+    nb, C, P = acc.shape
+    T1 = runs.numel() - 1
+    _check(acc.device, ("acc", acc, _F32, (nb, C, P)),
+           ("carry", carry, _F32, (nb, P)), ("live", live, _I32, (nb,)),
+           ("runs", runs, _I32, (T1 + 1,)))
+    out = torch.empty((T1, C, P), dtype=_F32, device=acc.device)
+    _launch("fs_flat_fwd_combine", (acc, carry, live, runs, out), (T1, P, C))
+    return out
+
+
+def bwd_suffix_cuda(acc, carry, live, runs, g_out):
+    """Stage 1 of K2 on the card; same returns as bwd_suffix_plain."""
+    nb, C, P = acc.shape
+    T1 = runs.numel() - 1
+    if C != _C_SUPPORTED:
+        raise ValueError(f"the CUDA kernels take C = {_C_SUPPORTED} channels")
+    _check(acc.device, ("acc", acc, _F32, (nb, C, P)),
+           ("carry", carry, _F32, (nb, P)), ("live", live, _I32, (nb,)),
+           ("runs", runs, _I32, (T1 + 1,)),
+           ("g_out", g_out, _F32, (T1, C, P)))
+    S = torch.empty((nb, P), dtype=_F32, device=acc.device)
+    _launch("fs_flat_bwd_suffix", (acc, carry, live, runs, g_out, S),
+            (T1, P, C))
+    return S
+
+
+def bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
+                    tiles_x, tile_size, B=128):
+    """Stage 2 of K2 on the card; same returns as bwd_blocks_plain."""
+    _check_geometry(table, tile_size, B)
+    PB, W = table.shape
+    C, P, nb = W - 8, tile_size * tile_size, PB // B
+    T1 = runs.numel() - 1
+    _check(table.device, ("table", table, _F32, (PB, W)),
+           ("runs", runs, _I32, (T1 + 1,)), ("live", live, _I32, (nb,)),
+           ("g_out", g_out, _F32, (T1, C, P)),
+           ("g_logt", g_logt, _F32, (T1, P)), ("logt", logt, _F32, (T1, P)),
+           ("carry", carry, _F32, (nb, P)), ("S", S, _F32, (nb, P)))
+    dtab = torch.empty((PB, W), dtype=_F32, device=table.device)
+    _launch("fs_flat_bwd_blocks",
+            (table, runs, live, g_out, g_logt, logt, carry, S, dtab),
+            (nb, T1, tiles_x, tile_size, B, C))
+    return dtab
+
+
 def flat_composite_fwd_cuda(table, runs, blk_count, num_tiles, tiles_x,
                             tile_size, B=128, blend_bf16=False):
-    """K1 on the card; same returns as flat_composite_fwd_plain."""
+    """K1 on the card: three launches; same returns as
+    flat_composite_fwd_plain."""
     _no_bf16(blend_bf16)
-    _check_launch(table, runs, blk_count, tile_size, B)
     if runs.shape != (num_tiles + 2,):
         raise ValueError("runs must have num_tiles + 2 entries")
-    PB, W = table.shape
-    P, nb, T1 = tile_size * tile_size, PB // B, num_tiles + 1
-    f32 = dict(dtype=torch.float32, device=table.device)
-    out = torch.empty((T1, W - 8, P), **f32)
-    logt = torch.empty((T1, P), **f32)
-    carry = torch.empty((nb, P), **f32)
-    lib = _lib()
-    err = lib.fs_flat_composite_fwd(
-        table.data_ptr(), runs.data_ptr(), blk_count.data_ptr(),
-        out.data_ptr(), logt.data_ptr(), carry.data_ptr(), T1, tiles_x, tile_size, B, W - 8,
-        torch.cuda.current_stream(table.device).cuda_stream)
-    _raise_on(err, "flat_composite_fwd")
+    delta, acc, _ = fwd_blocks_cuda(table, runs, blk_count, tiles_x,
+                                    tile_size, B)
+    carry, live, logt = fwd_scan_cuda(delta, runs, blk_count)
+    out = fwd_combine_cuda(acc, carry, live, runs)
     LAUNCHES["flat_composite_fwd"] += 1
-    return out, logt, carry
+    return out, logt, carry, acc, live
 
 
-def flat_composite_bwd_cuda(table, runs, blk_count, g_out, g_logt, logt,
-                            carry, tiles_x, tile_size, B=128,
+def flat_composite_bwd_cuda(table, runs, g_out, g_logt, logt, carry, acc,
+                            live, tiles_x, tile_size, B=128,
                             blend_bf16=False):
-    """K2 on the card; same returns as flat_composite_bwd_plain."""
+    """K2 on the card: two launches; same returns as
+    flat_composite_bwd_plain."""
     _no_bf16(blend_bf16)
-    _check_launch(table, runs, blk_count, tile_size, B)
-    PB, W = table.shape
-    P, nb, T1 = tile_size * tile_size, PB // B, logt.shape[0]
-    if runs.shape != (T1 + 1,):
-        raise ValueError("runs must have num_tiles + 2 entries")
-    for name, t, shape in (("g_out", g_out, (T1, W - 8, P)),
-                           ("g_logt", g_logt, (T1, P)), ("logt", logt, (T1, P)),
-                           ("carry", carry, (nb, P))):
-        if (t.device != table.device or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"{name} must be a contiguous float32 tensor of "
-                             f"shape {shape} on {table.device}")
-    dtab = torch.empty((PB, W), dtype=torch.float32, device=table.device)
-    lib = _lib()
-    err = lib.fs_flat_composite_bwd(
-        table.data_ptr(), runs.data_ptr(), blk_count.data_ptr(),
-        g_out.data_ptr(), g_logt.data_ptr(),
-        logt.data_ptr(), carry.data_ptr(), dtab.data_ptr(),
-        T1, tiles_x, tile_size, B, W - 8,
-        torch.cuda.current_stream(table.device).cuda_stream)
-    _raise_on(err, "flat_composite_bwd")
+    S = bwd_suffix_cuda(acc, carry, live, runs, g_out)
+    dtab = bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
+                           tiles_x, tile_size, B)
     LAUNCHES["flat_composite_bwd"] += 1
     return dtab
 
 
 def flat_composite_fwd(table, *args, **kw):
-    """K1: the kernel for a CUDA table, the plain version for a CPU one."""
+    """K1: the kernels for a CUDA table, the plain version for a CPU one."""
     if table.is_cuda:
         return flat_composite_fwd_cuda(table, *args, **kw)
     return flat_composite_fwd_plain(table, *args, **kw)
 
 
 def flat_composite_bwd(table, *args, **kw):
-    """K2: the kernel for a CUDA table, the plain version for a CPU one."""
+    """K2: the kernels for a CUDA table, the plain version for a CPU one."""
     if table.is_cuda:
         return flat_composite_bwd_cuda(table, *args, **kw)
     return flat_composite_bwd_plain(table, *args, **kw)
@@ -311,9 +493,9 @@ class _FlatComposite(torch.autograd.Function):
         runs = tile_runs(blk_tile, num_tiles)
         blk_count = blk_count.to(torch.int32).contiguous()
         table = table.contiguous()
-        out, logt, carry = flat_composite_fwd(
+        out, logt, carry, acc, live = flat_composite_fwd(
             table, runs, blk_count, num_tiles, tiles_x, tile_size, B)
-        ctx.save_for_backward(table, runs, blk_count, logt, carry)
+        ctx.save_for_backward(table, runs, logt, carry, acc, live)
         ctx.geom = (num_tiles, tiles_x, tile_size, B)
         out_t = out[:num_tiles].transpose(1, 2).contiguous()   # (T, P, C)
         alpha = 1.0 - torch.exp(logt[:num_tiles])
@@ -321,7 +503,7 @@ class _FlatComposite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_alpha):
-        table, runs, blk_count, logt, carry = ctx.saved_tensors
+        table, runs, logt, carry, acc, live = ctx.saved_tensors
         num_tiles, tiles_x, tile_size, B = ctx.geom
         C = table.shape[1] - 8
         P = tile_size * tile_size
@@ -333,8 +515,8 @@ class _FlatComposite(torch.autograd.Function):
             g_out_t[:num_tiles] = g_out.transpose(1, 2)
         if g_alpha is not None:
             g_logt[:num_tiles] = -g_alpha
-        dtab = flat_composite_bwd(table, runs, blk_count, g_out_t, g_logt,
-                                  logt, carry, tiles_x, tile_size, B)
+        dtab = flat_composite_bwd(table, runs, g_out_t, g_logt, logt, carry,
+                                  acc, live, tiles_x, tile_size, B)
         return dtab, None, None, None, None, None, None
 
 

@@ -5,7 +5,9 @@ test_torch_kernels.py; imports no JAX, so the card's tests can run where JAX
 is not installed.
 
 The flat cases cover a saturated tile (whole blocks skipped), a tile that
-owns no block, a live block with count 0, and the dummy tail. The dense
+owns no block, a live block with count 0, the dummy tail, a long run, a
+tile that saturates in the middle of its run, and rows the compositor
+culls (dead slots) beside a row with a NaN conic. The dense
 cases cover a saturated tile (early termination), a tile with count 0, a
 partly filled last chunk, and an offset slice of global tile ids."""
 import numpy as np
@@ -21,6 +23,19 @@ CASES = {
     # tile 2 owns no block; tile 4 is saturated after its first block
     "mixed": dict(runs=[2, 1, 0, 3, 4, 1], saturate=(4,)),
     "zero_count_block": dict(runs=[1, 2, 1, 1, 1, 2], zero_count_block=1),
+    # tile 1 owns 14 blocks of faint rows, all live: more than a run walker
+    # of the kernels loads at once (8)
+    "long_run": dict(runs=[1, 14, 0, 2, 1, 1], faint=(1,)),
+    # tile 1's 10 blocks are faint but its block 4 saturates the tile, so
+    # blocks 5-9 are skipped with the carry frozen
+    "saturate_mid_run": dict(runs=[2, 10, 1, 0, 1, 1], faint=(1,),
+                             saturate_block=(1, 4)),
+    # tile 0: blocks 1 and 4 hold only dead-slot rows (log_op = log(1e-12),
+    # a PSD conic), block 3 every other row; tile 2's block 1 starts with a
+    # dead-slot row whose ca is NaN, which must reach out and dtab
+    "culled_rows": dict(runs=[6, 1, 2, 0, 1, 1], faint=(0, 2),
+                        dead_blocks=((0, 1), (0, 4)), mixed_block=(0, 3),
+                        nan_row=(2, 1)),
 }
 
 
@@ -42,8 +57,9 @@ def maps(runs, dummy=2, zero_count_block=None, seed=0):
     return blk_tile, blk_first, blk_count
 
 
-def _fill_rows(rows, n, tile, rng, sat):
-    """Random live rows [0, n) of a (>= n, W) block for global tile `tile`."""
+def _fill_rows(rows, n, tile, rng, sat, faint=False):
+    """Random live rows [0, n) of a (>= n, W) block for global tile `tile`:
+    wide and nearly opaque with `sat`, of opacity 0.005-0.03 with `faint`."""
     ox, oy = (tile % TILES_X) * TS, (tile // TILES_X) * TS
     sig = rng.uniform(12.0, 20.0, (n, 2)) if sat else rng.uniform(1.5, 6.0, (n, 2))
     rho = rng.uniform(-0.3, 0.3, n)
@@ -55,12 +71,27 @@ def _fill_rows(rows, n, tile, rng, sat):
     rows[:n, 2] = syy / det
     rows[:n, 3] = -sxy / det
     rows[:n, 4] = sxx / det
-    op = rng.uniform(0.9, 0.99, n) if sat else rng.uniform(0.05, 0.9, n)
+    if sat:
+        op = rng.uniform(0.9, 0.99, n)
+    else:
+        op = rng.uniform(0.005, 0.03, n) if faint else rng.uniform(0.05, 0.9, n)
     rows[:n, 5] = np.log(op)
     rows[:n, 8:15] = rng.uniform(0.0, 1.0, (n, 7))
 
 
-def table(blk_tile, blk_count, saturate=(), seed=0):
+def _dead_rows(rows, idx, tile, rng):
+    """Dead-slot rows at `idx`: opacity 0 as the rasterizer writes it
+    (log_op = log(1e-12)), a 2 px round footprint near the tile's centre."""
+    n = len(range(*idx.indices(rows.shape[0])))
+    ox, oy = (tile % TILES_X) * TS, (tile // TILES_X) * TS
+    rows[idx, 0] = ox + TS / 2 + rng.uniform(-1, 1, n)
+    rows[idx, 1] = oy + TS / 2 + rng.uniform(-1, 1, n)
+    rows[idx, 2:5] = [0.25, 0.0, 0.25]
+    rows[idx, 5] = np.log(np.float32(1e-12))
+
+
+def table(blk_tile, blk_count, saturate=(), faint=(), saturate_block=None,
+          dead_blocks=(), mixed_block=None, nan_row=None, seed=0):
     rng = np.random.RandomState(seed)
     nb = blk_tile.shape[0]
     tab = np.zeros((nb, B, W), np.float32)
@@ -69,7 +100,16 @@ def table(blk_tile, blk_count, saturate=(), seed=0):
         t = blk_tile[b]
         if t >= T:
             continue
-        _fill_rows(tab[b], blk_count[b], t, rng, t in saturate)
+        k = b - int(np.searchsorted(blk_tile, t))      # position in the run
+        sat = t in saturate or (t, k) == saturate_block
+        _fill_rows(tab[b], blk_count[b], t, rng, sat, t in faint)
+        if (t, k) in dead_blocks:
+            _dead_rows(tab[b], slice(0, blk_count[b]), t, rng)
+        if (t, k) == mixed_block:
+            _dead_rows(tab[b], slice(0, blk_count[b], 2), t, rng)
+        if (t, k) == nan_row:
+            _dead_rows(tab[b], slice(0, 1), t, rng)
+            tab[b, 0, 2] = np.nan
     return tab.reshape(nb * B, W)
 
 
@@ -78,7 +118,8 @@ def case(name):
     spec = CASES[name]
     blk_tile, blk_first, blk_count = maps(
         spec["runs"], zero_count_block=spec.get("zero_count_block"))
-    tab = table(blk_tile, blk_count, saturate=spec.get("saturate", ()))
+    tab = table(blk_tile, blk_count, **{
+        k: v for k, v in spec.items() if k not in ("runs", "zero_count_block")})
     # cotangents at the scale a per-pixel mean loss gives (~1e-2 here): with
     # unit cotangents the conic columns sum terms of ~1e3 over the tile, and
     # float32 summation order alone moves them by more than 1e-5

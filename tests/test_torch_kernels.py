@@ -10,8 +10,8 @@ import pytest
 import torch
 
 from flat_cases import (
-    B, CASES, DENSE_CASES, T, TILES_X, TS, case, dense_case, torch_dense_fwd_bwd,
-    torch_fwd_bwd,
+    B, C, CASES, DENSE_CASES, P, T, TILES_X, TS, case, dense_case,
+    torch_dense_fwd_bwd, torch_fwd_bwd,
 )
 from fusionsense_tpu_torch.kernels import build
 from fusionsense_tpu_torch.render import composite2 as C2
@@ -33,6 +33,16 @@ def assert_columns_close(got, want, rel):
     assert np.all(err <= rel * scale), (err / np.maximum(scale, 1e-30)).tolist()
 
 
+def finite_part(got, want):
+    """Both with zeros where `want` is not finite, after checking that `got`
+    has NaN only where `want` has: a warp whose pixels all have alpha = 0
+    adds exact zeros in the kernels, where the plain version adds 0 * NaN
+    once a NaN has entered the block's transmittance."""
+    bad = ~np.isfinite(want)
+    assert not np.isnan(got[~bad]).any()
+    return np.where(bad, 0.0, got), np.where(bad, 0.0, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernels_match_plain_on_card(card, name):
@@ -49,11 +59,61 @@ def test_kernels_match_plain_on_card(card, name):
     # another order. The saturated tile's wide Gaussians (sigma 12-20 px)
     # make the conic columns sums of large terms that cancel: there the two
     # differ by up to 9e-5 absolute, 5e-5 of the column's scale (H100), so
-    # dtab is held both to 1e-4 absolute and to 1e-4 of each column's scale
+    # dtab is held both to 1e-4 absolute and to 1e-4 of each column's scale.
+    # out and alpha have NaN exactly where the plain version has (the
+    # culled_rows case), dtab NaN only there.
     np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
     np.testing.assert_allclose(got[1], want[1], atol=1e-6, rtol=0)
-    np.testing.assert_allclose(got[2], want[2], atol=1e-4, rtol=0)
-    assert_columns_close(got[2], want[2], 1e-4)
+    assert np.isnan(got[2]).any() == np.isnan(want[2]).any()
+    dtab, dtab_want = finite_part(got[2], want[2])
+    np.testing.assert_allclose(dtab, dtab_want, atol=1e-4, rtol=0)
+    assert_columns_close(dtab, dtab_want, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_stages_match_plain_on_card(card, name):
+    """Each CUDA stage of K1/K2 against its plain twin on the same inputs,
+    the kernels' own state passed along as chip_smoke.py does: the scan's
+    carries, log T and live flags exactly, the rest at K1/K2's limits."""
+    tab, bt, _, bc, g_out, g_alpha = case(name)
+    g = torch.zeros((T + 1, C, P))
+    g[:T] = torch.tensor(g_out).transpose(1, 2)
+    g_logt = torch.zeros((T + 1, P))
+    g_logt[:T] = -torch.tensor(g_alpha)
+    table, count = torch.tensor(tab).to(card), torch.tensor(bc).to(card)
+    runs = FC.tile_runs(torch.tensor(bt), T).to(card)
+    geo = (TILES_X, TS, B)
+
+    def both(stage, *args):
+        """The stage's CUDA outputs and its twin's on CPU copies, as numpy."""
+        got = getattr(FC, f"{stage}_cuda")(*args)
+        torch.cuda.synchronize()
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        want = getattr(FC, f"{stage}_plain")(*cpu)
+        pair = lambda k, p: (k.cpu().numpy(), p.numpy())  # noqa: E731
+        if torch.is_tensor(got):
+            return got, pair(got, want)
+        return got, [pair(k, p) for k, p in zip(got, want)]
+
+    (delta, acc, _), ((d, d_p), (a, a_p), (n, n_p)) = both(
+        "fwd_blocks", table, runs, count, *geo)
+    np.testing.assert_allclose(np.exp(d), np.exp(d_p), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(a, a_p, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(n, n_p)   # the kernel's cull is cull_rows
+    (carry, live, logt), scanned = both("fwd_scan", delta, runs, count)
+    for k, p in scanned:
+        np.testing.assert_array_equal(k, p)
+    _, (out, out_p) = both("fwd_combine", acc, carry, live, runs)
+    np.testing.assert_allclose(out, out_p, atol=1e-5, rtol=0)
+    g, g_logt = g.to(card), g_logt.to(card)
+    S, (s, s_p) = both("bwd_suffix", acc, carry, live, runs, g)
+    np.testing.assert_allclose(s, s_p, atol=1e-7, rtol=1e-5)
+    _, (dtab, dtab_p) = both("bwd_blocks", table, runs, live, g, g_logt,
+                             logt, carry, S, *geo)
+    dtab, dtab_want = finite_part(dtab, dtab_p)
+    np.testing.assert_allclose(dtab, dtab_want, atol=1e-4, rtol=0)
+    assert_columns_close(dtab, dtab_want, 1e-4)
 
 
 @pytest.mark.gpu
@@ -127,6 +187,32 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         FC.flat_composite_fwd_cuda(torch.tensor(tab), runs, torch.tensor(bc),
                                    T, TILES_X, TS, B)
     assert FC.LAUNCHES["flat_composite_fwd"] == 0
+
+
+def test_stage_wrappers_refuse_cpu_tensors():
+    """Every CUDA stage of K1/K2 raises on CPU tensors before a launch."""
+    tab, bt, _, bc, _, _ = case("mixed")
+    table, count = torch.tensor(tab), torch.tensor(bc)
+    runs = FC.tile_runs(torch.tensor(bt), T)
+    delta, acc, _ = FC.fwd_blocks_plain(table, runs, count, TILES_X, TS, B)
+    carry, live, logt = FC.fwd_scan_plain(delta, runs, count)
+    g = torch.zeros((T + 1, C, P))
+    S = FC.bwd_suffix_plain(acc, carry, live, runs, g)
+    calls = [
+        (FC.fwd_blocks_cuda, (table, runs, count, TILES_X, TS, B)),
+        (FC.fwd_scan_cuda, (delta, runs, count)),
+        (FC.fwd_combine_cuda, (acc, carry, live, runs)),
+        (FC.bwd_suffix_cuda, (acc, carry, live, runs, g)),
+        (FC.bwd_blocks_cuda, (table, runs, live, g, logt, logt, carry, S,
+                              TILES_X, TS, B)),
+        (FC.flat_composite_bwd_cuda, (table, runs, g, logt, logt, carry, acc,
+                                      live, TILES_X, TS, B)),
+    ]
+    FC.reset_launch_counts()
+    for fn, args in calls:
+        with pytest.raises(ValueError):
+            fn(*args)
+    assert sum(FC.LAUNCHES.values()) == 0
 
 
 def test_build_is_keyed_by_source_and_lazy():
