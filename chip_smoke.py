@@ -28,10 +28,12 @@ Phases (any failure exits non-zero and prints no result):
  7. the dense path on the same scene and initial state: the dn_splatter
     preset's model and loss with backend="pallas" (tile 16, K 512, cover up
     to 16 tiles, binary opacities), no bin cache. K3/K4 against plain
-    versions on view 0's real (T, K) table; Trainer.run for 60 steps with
-    the counters zeroed just before and read after, the last 50 timed;
-    K3/K4 checked again and timed at the timed steps' shape; a profile of
-    5 more dense steps;
+    versions on view 0's real (T, K) table, then each of their four stages
+    against its plain twin on the same inputs, and the forward chunks the
+    stop rule discards; Trainer.run for 60 steps with the counters zeroed
+    just before and read after, the last 50 timed; K3/K4 and their stages
+    checked again and timed at the timed steps' shape; a profile of 5 more
+    dense steps;
  8. a {"kernels": [...]} line for all four kernels, the card line, and last
     the result line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -214,6 +216,42 @@ def check_columns(name, dtab, dtab_p):
     return float(err_col.max())
 
 
+def run_stages(torch, what, mod, stages, timed):
+    """Each (name, args, errs) of `stages`: the CUDA stage `mod.<name>_cuda`
+    against its plain twin on the same args, `errs(cuda outputs, plain
+    outputs)` giving {what: (error, limit or None where the check raised
+    already)}; with `timed`, each stage's time. Returns {name: ms}."""
+    times = {}
+    for name, args, errs in stages:
+        cuda, plain = getattr(mod, f"{name}_cuda"), getattr(mod, f"{name}_plain")
+        got = cuda(*args)
+        torch.cuda.synchronize()
+        checked = errs(got, plain(*args))
+        log(f"{what} stage {name} vs its plain twin: " + "  ".join(
+            f"{k} {v:.3e}" + ("" if lim is None else f" (limit {lim:.0e})")
+            for k, (v, lim) in checked.items()))
+        if any(lim is not None and not v <= lim
+               for v, lim in checked.values()):
+            raise RuntimeError(f"stage {name} disagrees with its plain twin")
+        if timed:
+            times[name] = cuda_ms(lambda: cuda(*args), TIMED_LAUNCHES,
+                                  WARM_LAUNCHES)
+    if timed:
+        log(f"{what} stage ms: " + "  ".join(f"{k} {v:.4f}"
+                                            for k, v in times.items()))
+    return times
+
+
+def max_err(a, b):
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def rel_err(a, b):
+    """max|a - b| over max|b|."""
+    return max_err(a, b) / max(float(b.abs().max()) if b.numel() else 0.0,
+                               1e-30)
+
+
 def check_stages(torch, FC, inputs, culled, timed):
     """Each CUDA stage of K1/K2 against its plain twin on the same inputs
     (the kernels' own intermediate state); with `timed`, each stage's
@@ -223,12 +261,9 @@ def check_stages(torch, FC, inputs, culled, timed):
     delta, acc, kept = FC.fwd_blocks_cuda(table, runs, count, *geo)
     S = FC.bwd_suffix_cuda(acc, carry, live, runs, g_out)
     torch.cuda.synchronize()
-    e = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    e = max_err
     ex = lambda a, b: e(torch.exp(a), torch.exp(b))  # noqa: E731
-    rel = lambda a, b: e(a, b) / max(float(b.abs().max()), 1e-30)  # noqa: E731
     stages = [
-        # name, args, {what: (error of cuda vs plain outputs, limit or None
-        # where the check raised already)}
         ("fwd_blocks", (table, runs, count, *geo),
          lambda k, p: {"exp(delta)": (ex(k[0], p[0]), TOL_ALPHA),
                        "acc": (e(k[1], p[1]), TOL_OUT),
@@ -240,30 +275,54 @@ def check_stages(torch, FC, inputs, culled, timed):
         ("fwd_combine", (acc, carry, live, runs),
          lambda k, p: {"out": (e(k, p), TOL_OUT)}),
         ("bwd_suffix", (acc, carry, live, runs, g_out),
-         lambda k, p: {"S / max|S|": (rel(k, p), TOL_DTAB_REL)}),
+         lambda k, p: {"S / max|S|": (rel_err(k, p), TOL_DTAB_REL)}),
         ("bwd_blocks", (table, runs, live, g_out, g_logt, logt, carry, S,
                         *geo),
          lambda k, p: {"dtab": (check_columns("bwd_blocks", k, p), None)}),
     ]
-    times = {}
-    for name, args, errs in stages:
-        cuda, plain = getattr(FC, f"{name}_cuda"), getattr(FC, f"{name}_plain")
-        got = cuda(*args)
-        torch.cuda.synchronize()
-        checked = errs(got, plain(*args))
-        log(f"stage {name} vs its plain twin: " + "  ".join(
-            f"{k} {v:.3e}" + ("" if lim is None else f" (limit {lim:.0e})")
-            for k, (v, lim) in checked.items()))
-        if any(lim is not None and not v <= lim
-               for v, lim in checked.values()):
-            raise RuntimeError(f"stage {name} disagrees with its plain twin")
-        if timed:
-            times[name] = cuda_ms(lambda: cuda(*args), TIMED_LAUNCHES,
-                                  WARM_LAUNCHES)
+    times = run_stages(torch, "K1/K2", FC, stages, timed)
     if timed:
-        log("stage ms: " + "  ".join(f"{k} {v:.4f}" for k, v in times.items()))
         cull_off(torch, FC, inputs, culled, (delta, acc, S), times)
     return kept
+
+
+def check_dense_stages(torch, C2, inputs, timed):
+    """Each CUDA stage of K3/K4 against its plain twin on the same inputs
+    (the kernels' own intermediate state): delta and acc of the chunks below
+    ceil(count / B), which are all the chunk pass writes; the combine's log
+    T, carries and nused exactly (the same deltas summed in the same
+    order); S of the chunks below nused. With `timed`, each stage's time."""
+    table, counts, tile_ids, geo, g_out, g_logt = inputs
+    B = geo[-1]
+    nc = table.shape[1] // B
+    delta, acc = C2.fwd_chunks_cuda(table, counts, tile_ids, *geo)
+    _, logt, carries, nused = C2.fwd_combine_cuda(delta, acc, counts, B)
+    S = C2.bwd_suffix_cuda(acc, carries, nused, g_out)
+    torch.cuda.synchronize()
+    chunk = torch.arange(nc, device=table.device)[None, :]
+    done = chunk < C2.n_chunks(counts, B, nc)[:, None]
+    used = chunk < nused[:, None]
+    e = max_err
+    differ = lambda a, b: int((a != b).sum())  # noqa: E731
+    stages = [
+        ("fwd_chunks", (table, counts, tile_ids, *geo),
+         lambda k, p: {"exp(delta)": (e(torch.exp(k[0][done]),
+                                        torch.exp(p[0][done])), TOL_ALPHA),
+                       "acc": (e(k[1][done], p[1][done]), TOL_OUT)}),
+        ("fwd_combine", (delta, acc, counts, B),
+         lambda k, p: {"out": (e(k[0], p[0]), TOL_OUT),
+                       "log T differing": (differ(k[1], p[1]), 0),
+                       "carries differing": (differ(k[2], p[2]), 0),
+                       "nused differing": (differ(k[3], p[3]), 0)}),
+        ("bwd_suffix", (acc, carries, nused, g_out),
+         lambda k, p: {"S / max|S|": (rel_err(k[used], p[used]),
+                                      TOL_DTAB_REL)}),
+        ("bwd_chunks", (table, nused, tile_ids, g_out, g_logt, logt, carries,
+                        S, *geo),
+         lambda k, p: {"dtab": (check_columns("bwd_chunks", k, p), None)}),
+    ]
+    run_stages(torch, "K3/K4", C2, stages, timed)
+    return int(done.sum())
 
 
 def cull_off(torch, FC, inputs, culled, state, times):
@@ -462,9 +521,9 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
 
     fwd = lambda: C2.composite2_fwd_cuda(table, counts, tile_ids, tx, ts, B)  # noqa: E731
     fwd_p = lambda: C2.composite2_fwd_plain(table, counts, tile_ids, tx, ts, B)  # noqa: E731
-    out, logt, carries, nused = fwd()
+    out, logt, carries, nused, acc = fwd()
     torch.cuda.synchronize()
-    out_p, logt_p, carries_p, nused_p = fwd_p()
+    out_p, logt_p, carries_p, nused_p, _ = fwd_p()
     if not torch.equal(nused, nused_p):
         raise RuntimeError(f"K3's nused differs from the plain version's in "
                            f"{int((nused != nused_p).sum())} tiles")
@@ -484,13 +543,21 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     g_out = G_SCALE * torch.randn((T, C, P), generator=gen, device=table.device)
     g_logt = G_SCALE * torch.randn((T, P), generator=gen, device=table.device)
     bwd = lambda: C2.composite2_bwd_cuda(  # noqa: E731
-        table, nused, tile_ids, g_out, g_logt, logt, carries, tx, ts, B)
+        table, nused, tile_ids, g_out, g_logt, logt, carries, acc, tx, ts, B)
     bwd_p = lambda: C2.composite2_bwd_plain(  # noqa: E731
-        table, nused, tile_ids, g_out, g_logt, logt, carries, tx, ts, B)
+        table, nused, tile_ids, g_out, g_logt, logt, carries, acc, tx, ts, B)
     dtab = bwd()
     torch.cuda.synchronize()
     err_dtab = check_columns("K4", dtab, bwd_p())
     errs = {"fwd": max(err_out, err_alpha, err_carry), "bwd": err_dtab}
+    passed = check_dense_stages(torch, C2, (table, counts, tile_ids,
+                                            (tx, ts, B), g_out, g_logt),
+                                timed)
+    chunks = int(nused.sum())
+    log(f"by design fwd_chunks and bwd_chunks launch one CTA per (tile, "
+        f"chunk) ({T * nc}); fwd_chunks composited {passed} chunks, the "
+        f"stop rule kept {chunks}: {passed - chunks} forward chunks "
+        f"composited and discarded")
     if not timed:
         return errs, None
 
@@ -503,7 +570,6 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
                           K).reshape(T, K)
     live_pairs = int((composited & ~culled).sum())
     ref_pairs = int(composited.sum())
-    chunks = int(nused.sum())
     f4 = 4
     row_bytes = chunks * B * W * f4
     fwd_bytes = (row_bytes + 2 * T * f4 + T * (C + 1) * P * f4

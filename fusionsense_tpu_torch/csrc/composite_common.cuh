@@ -82,23 +82,57 @@ __device__ __forceinline__ void composite_block(const float* s_tab, int B,
   log_t += cum;
 }
 
+// One step of the transposing butterfly: the lanes on either side of the
+// xor distance 2 * HALF each keep the HALF sums their side owns (the upper
+// side the upper half) and send the other HALF to the partner, so the
+// step costs HALF shuffles and leaves HALF values per lane.
+template <int HALF>
+__device__ __forceinline__ void fold_half(float (&v)[16], int lane) {
+  const bool upper = (lane & (2 * HALF)) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * HALF);
+  }
+}
+
+// The warp's sums of 16 values per lane, with 8 + 4 + 2 + 1 + 1 = 16
+// shuffles (a butterfly per value takes 5 of them). Returns in lanes 2k
+// and 2k + 1 the sum over the warp of v[k], the same bits in both; the
+// order of the additions is fixed.
+__device__ __forceinline__ float warp_sums16(float (&v)[16], int lane) {
+  fold_half<8>(v, lane);
+  fold_half<4>(v, lane);
+  fold_half<2>(v, lane);
+  fold_half<1>(v, lane);
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
 // Backward over one staged block of B rows (B a multiple of kGroup), called
 // by every thread of the CTA. The block is walked in reverse from its exit
 // log T `L` (T_excl is recovered by subtracting log1p(-alpha) pair by pair,
 // so no per-pair state is stored); S is the sum of w * q over the pairs
 // behind this block, and the return value is S extended by this block.
-// The per-pair sums over the tile's pixels are warp shuffles, then one
-// shared-memory pass over the warps for kGroup pairs at a time; a warp whose
-// pixels all have alpha = 0 for a pair skips its shuffles (every term is
-// exactly zero). Writes the block's B gradient rows to dst: d mx, d my,
-// d ca, d cb, d cc, d log_op, |d mx|, |d my|, d chan. Ends on a barrier, so
-// s_tab may be restaged at once.
+// Each pair has 6 + C sums over the tile's pixels (d mx, d my, d ca, d cb,
+// d cc, d log_op, d chan[C]: 14 at C = 8). Within a warp they are padded to
+// 16 and reduced by warp_sums16's transposing butterfly, 16 shuffles per
+// pair instead of 70 for a butterfly per sum; shuffles run at a quarter of
+// the FP32 rate, so 70 shuffles would cost about three times the pair's
+// arithmetic. The lanes that end up holding the sums store them at
+// once.
+// A warp whose pixels all have alpha = 0 for a pair skips its shuffles
+// (every term is exactly zero). One shared-memory pass over the warps then
+// sums kGroup pairs at a time and writes the block's B gradient rows to
+// dst: d mx, d my, d ca, d cb, d cc, d log_op, |d mx|, |d my|, d chan.
+// Ends on a barrier, so s_tab may be restaged at once.
 template <int C>
 __device__ __forceinline__ float block_backward(
     const float* s_tab, float* s_part, float* dst, int B, Pixel px,
     const float (&g)[C], float glt, float t_fin, float L, float S) {
   constexpr int W = 8 + C;
   constexpr int NRED = 6 + C;   // d_mx d_my d_ca d_cb d_cc d_lo d_chan[C]
+  static_assert(NRED <= 16, "warp_sums16 reduces at most 16 sums");
   const int p = threadIdx.x;
   const int P = blockDim.x;
   const int lane = p & 31;
@@ -125,32 +159,24 @@ __device__ __forceinline__ float block_backward(
       const float inv1m = 1.0f / (1.0f - alpha);
       const float d_alpha = q * t_excl - suffix * inv1m - glt * t_fin * inv1m;
       const float d_power = alive ? alpha * d_alpha : 0.0f;
-      const float ca = row[2], cb = row[3], cc = row[4];
-      float v[NRED];
-      v[0] = d_power * (ca * dx + cb * dy);
-      v[1] = d_power * (cb * dx + cc * dy);
-      v[2] = d_power * (-0.5f * dx * dx);
-      v[3] = d_power * (-dx * dy);
-      v[4] = d_power * (-0.5f * dy * dy);
-      v[5] = d_power;
+      float sum = 0.0f;
+      if (__any_sync(0xffffffffu, alpha != 0.0f)) {
+        const float ca = row[2], cb = row[3], cc = row[4];
+        float v[16];
+        v[0] = d_power * (ca * dx + cb * dy);
+        v[1] = d_power * (cb * dx + cc * dy);
+        v[2] = d_power * (-0.5f * dx * dx);
+        v[3] = d_power * (-dx * dy);
+        v[4] = d_power * (-0.5f * dy * dy);
+        v[5] = d_power;
 #pragma unroll
-      for (int c = 0; c < C; ++c) v[6 + c] = w * g[c];
-      const bool any = __any_sync(0xffffffffu, alpha != 0.0f);
-      if (any) {
+        for (int c = 0; c < C; ++c) v[6 + c] = w * g[c];
 #pragma unroll
-        for (int k = 0; k < NRED; ++k) {
-          float x = v[k];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            x += __shfl_xor_sync(0xffffffffu, x, off);
-          v[k] = x;
-        }
+        for (int k = NRED; k < 16; ++k) v[k] = 0.0f;
+        sum = warp_sums16(v, lane);
       }
-      if (lane == 0) {
-        float* dstp = s_part + (warp * kGroup + jj) * NRED;
-#pragma unroll
-        for (int k = 0; k < NRED; ++k) dstp[k] = any ? v[k] : 0.0f;
-      }
+      const int k = lane >> 1;
+      if (!(lane & 1) && k < NRED) s_part[(warp * kGroup + jj) * NRED + k] = sum;
     }
     __syncthreads();
     for (int i = p; i < kGroup * NRED; i += P) {

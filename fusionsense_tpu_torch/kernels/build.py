@@ -103,3 +103,24 @@ def build_all(names=SOURCES) -> list[Built]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     return ctypes.CDLL(str(build(name).path))
+
+
+def launch(name: str, entry_points: dict, fn: str, tensors, ints) -> None:
+    """Call the C entry point `fn` of csrc/<name>.cu with the tensors' data
+    pointers, then `ints`, then the current CUDA stream of the first
+    tensor's device, and raise if it returns a CUDA error. entry_points
+    maps each entry point of the library to its (pointer, int) argument
+    counts; the library is typed from it on first use."""
+    import torch
+
+    lib = load(name)
+    if not getattr(lib, "_fs_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for ep, (n_ptr, n_int) in entry_points.items():
+            getattr(lib, ep).argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+            getattr(lib, ep).restype = ci
+        lib._fs_typed = True
+    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+    err = getattr(lib, fn)(*(t.data_ptr() for t in tensors), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")

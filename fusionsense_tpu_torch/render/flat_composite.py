@@ -42,7 +42,6 @@ kernel stages, so the kernel's cull is held against cull_rows.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -335,30 +334,10 @@ def _check(device, *specs):
                              f"{tuple(t.shape)}")
 
 
-def _lib():
-    from fusionsense_tpu_torch.kernels.build import load
+def _launch(fn, tensors, ints):
+    from fusionsense_tpu_torch.kernels.build import launch
 
-    lib = load("flat_composite")
-    if not getattr(lib, "_fs_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name, (n_ptr, n_int) in _FNS.items():
-            fn = getattr(lib, name)
-            fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
-            fn.restype = ci
-        lib._fs_typed = True
-    return lib
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
-def _launch(name, tensors, ints):
-    dev = tensors[0].device
-    err = getattr(_lib(), name)(*(t.data_ptr() for t in tensors), *ints,
-                                torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, name)
+    launch("flat_composite", _FNS, fn, tensors, ints)
 
 
 _F32, _I32 = torch.float32, torch.int32

@@ -9,7 +9,10 @@ owns no block, a live block with count 0, the dummy tail, a long run, a
 tile that saturates in the middle of its run, and rows the compositor
 culls (dead slots) beside a row with a NaN conic. The dense
 cases cover a saturated tile (early termination), a tile with count 0, a
-partly filled last chunk, and an offset slice of global tile ids."""
+partly filled last chunk, an offset slice of global tile ids, a full tile
+that saturates in its middle chunk (so the chunk pass composites a chunk
+the reference never reaches), a NaN conic in that skipped chunk, and a NaN
+conic in a chunk that is composited."""
 import numpy as np
 import torch
 
@@ -153,7 +156,30 @@ DENSE_CASES = {
     # rows are tiles 3..8 of a 3 x 3 grid: the pixels follow tile_ids
     "offset_slice": dict(counts=[200, 384, 0, 129, 384, 17], saturate=(4,),
                          tile_lo=3),
+    # tile 0 is full: a faint chunk 0, a chunk 1 that saturates every pixel,
+    # and a faint chunk 2 that the chunk pass composites but the reference
+    # never reaches
+    "saturate_mid_tile": dict(counts=[384, 0, 300, 140, 384, 57],
+                              saturate=(4,), faint=(0,),
+                              saturate_chunk=(0, 1), tile_lo=0),
+    # the same tile 0 with a NaN conic in a row of its skipped chunk 2 (out,
+    # alpha and dtab stay finite there, chunk 2's dtab rows zero); tile 3's
+    # chunk 1 opens with a NaN conic, which reaches out and dtab
+    "nan_past_stop": dict(counts=[384, 0, 300, 129, 384, 57], saturate=(4,),
+                          faint=(0, 3), saturate_chunk=(0, 1),
+                          nan_rows=((0, 2 * B + 5), (3, B)), tile_lo=0),
 }
+
+
+def dense_stops(name):
+    """{tile: chunks the reference composites} for the tiles of a dense case
+    that saturate before their last chunk."""
+    spec = DENSE_CASES[name]
+    stops = {t: 1 for t in spec["saturate"]}
+    if "saturate_chunk" in spec:
+        t, c = spec["saturate_chunk"]
+        stops[t] = c + 1
+    return stops
 
 
 def dense_case(name, seed=0):
@@ -167,7 +193,12 @@ def dense_case(name, seed=0):
     tab[..., 5] = -1e10
     for i in range(T):
         _fill_rows(tab[i], counts[i], int(tile_ids[i]), rng,
-                   i in spec["saturate"])
+                   i in spec["saturate"], i in spec.get("faint", ()))
+    if "saturate_chunk" in spec:
+        t, c = spec["saturate_chunk"]
+        _fill_rows(tab[t, c * B:(c + 1) * B], B, int(tile_ids[t]), rng, True)
+    for t, slot in spec.get("nan_rows", ()):
+        tab[t, slot, 2] = np.nan
     rng = np.random.RandomState(1)
     g_out = 0.01 * rng.normal(size=(T, P, C)).astype(np.float32)
     g_alpha = 0.01 * rng.normal(size=(T, P)).astype(np.float32)

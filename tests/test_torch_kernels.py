@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from flat_cases import (
-    B, C, CASES, DENSE_CASES, P, T, TILES_X, TS, case, dense_case,
+    B, C, CASES, DENSE_CASES, DENSE_K, P, T, TILES_X, TS, case, dense_case,
     torch_dense_fwd_bwd, torch_fwd_bwd,
 )
 from fusionsense_tpu_torch.kernels import build
@@ -120,7 +120,9 @@ def test_stages_match_plain_on_card(card, name):
 @pytest.mark.parametrize("name", sorted(DENSE_CASES))
 def test_dense_kernels_match_plain_on_card(card, name):
     """K3/K4 against the plain versions, with the flat cases' limits; nused
-    and the carries of the chunks composited too."""
+    and the carries of the chunks composited too. out, alpha and log T
+    have NaN exactly where the plain version has (the nan_past_stop case),
+    dtab NaN only there."""
     args = dense_case(name)
     C2.reset_launch_counts()
     got = torch_dense_fwd_bwd(*args, device=card)
@@ -130,9 +132,11 @@ def test_dense_kernels_match_plain_on_card(card, name):
     want = torch_dense_fwd_bwd(*args, device="cpu")
     np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
     np.testing.assert_allclose(got[1], want[1], atol=1e-6, rtol=0)
-    np.testing.assert_allclose(got[2], want[2], atol=1e-4, rtol=0)
-    assert_columns_close(got[2].reshape(-1, got[2].shape[-1]),
-                         want[2].reshape(-1, want[2].shape[-1]), 1e-4)
+    assert np.isnan(got[2]).any() == np.isnan(want[2]).any()
+    dtab, dtab_want = finite_part(got[2], want[2])
+    np.testing.assert_allclose(dtab, dtab_want, atol=1e-4, rtol=0)
+    assert_columns_close(dtab.reshape(-1, dtab.shape[-1]),
+                         dtab_want.reshape(-1, dtab.shape[-1]), 1e-4)
     tab, counts, tile_ids = (torch.tensor(a) for a in args[:3])
     fwd_k = C2.composite2_fwd_cuda(*(x.to(card) for x in (tab, counts, tile_ids)),
                                    TILES_X, TS, B)
@@ -143,6 +147,56 @@ def test_dense_kernels_match_plain_on_card(card, name):
                                atol=1e-4, rtol=1e-5)
     np.testing.assert_allclose(fwd_k[2].cpu().numpy(), fwd_p[2].numpy(),
                                atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_stages_match_plain_on_card(card, name):
+    """Each CUDA stage of K3/K4 against its plain twin on the same inputs,
+    the kernels' own state passed along as chip_smoke.py does: delta and
+    acc of the chunks below ceil(count / B) (the kernel writes no others),
+    the combine's carries, log T and nused exactly (the same deltas summed
+    in the same order), S of the chunks below nused, dtab at K4's limits."""
+    tab, counts, tile_ids, g_out, g_alpha = dense_case(name)
+    table, counts, ids = (torch.tensor(a).to(card)
+                          for a in (tab, counts, tile_ids))
+    g = torch.tensor(g_out).transpose(1, 2).contiguous().to(card)
+    g_logt = (-torch.tensor(g_alpha)).to(card)
+    geo = (TILES_X, TS, B)
+    nc = DENSE_K // B
+
+    def both(stage, *args):
+        """The stage's CUDA outputs and its twin's on CPU copies."""
+        got = getattr(C2, f"{stage}_cuda")(*args)
+        torch.cuda.synchronize()
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        return got, getattr(C2, f"{stage}_plain")(*cpu)
+
+    (delta, acc), (delta_p, acc_p) = both("fwd_chunks", table, counts, ids,
+                                          *geo)
+    done = (torch.arange(nc)[None, :]
+            < C2.n_chunks(counts.cpu(), B, nc)[:, None])
+    np.testing.assert_allclose(torch.exp(delta.cpu()[done]).numpy(),
+                               torch.exp(delta_p[done]).numpy(), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(acc.cpu()[done].numpy(), acc_p[done].numpy(),
+                               atol=1e-5, rtol=0)
+    (out, logt, carries, nused), combined = both("fwd_combine", delta, acc,
+                                                 counts, B)
+    np.testing.assert_allclose(out.cpu().numpy(), combined[0].numpy(),
+                               atol=1e-5, rtol=0)
+    for k, p in zip((logt, carries, nused), combined[1:]):
+        np.testing.assert_array_equal(k.cpu().numpy(), p.numpy())
+    used = torch.arange(nc)[None, :] < nused.cpu()[:, None].long()
+    S, S_p = both("bwd_suffix", acc, carries, nused, g)
+    np.testing.assert_allclose(S.cpu()[used].numpy(), S_p[used].numpy(),
+                               atol=1e-7, rtol=1e-5)
+    dtab, dtab_p = both("bwd_chunks", table, nused, ids, g, g_logt, logt,
+                        carries, S, *geo)
+    dtab, dtab_want = finite_part(dtab.cpu().numpy(), dtab_p.numpy())
+    np.testing.assert_allclose(dtab, dtab_want, atol=1e-4, rtol=0)
+    assert_columns_close(dtab.reshape(-1, dtab.shape[-1]),
+                         dtab_want.reshape(-1, dtab.shape[-1]), 1e-4)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -190,7 +244,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_stage_wrappers_refuse_cpu_tensors():
-    """Every CUDA stage of K1/K2 raises on CPU tensors before a launch."""
+    """Every CUDA stage of K1/K2 and of K3/K4 raises on CPU tensors before a
+    launch."""
     tab, bt, _, bc, _, _ = case("mixed")
     table, count = torch.tensor(tab), torch.tensor(bc)
     runs = FC.tile_runs(torch.tensor(bt), T)
@@ -198,6 +253,11 @@ def test_stage_wrappers_refuse_cpu_tensors():
     carry, live, logt = FC.fwd_scan_plain(delta, runs, count)
     g = torch.zeros((T + 1, C, P))
     S = FC.bwd_suffix_plain(acc, carry, live, runs, g)
+    tab_d, counts, ids, _, _ = (torch.tensor(a) for a in dense_case("mixed"))
+    delta_d, acc_d = C2.fwd_chunks_plain(tab_d, counts, ids, TILES_X, TS, B)
+    _, logt_d, carries, nused = C2.fwd_combine_plain(delta_d, acc_d, counts, B)
+    g_d = torch.zeros((T, C, P))
+    S_d = C2.bwd_suffix_plain(acc_d, carries, nused, g_d)
     calls = [
         (FC.fwd_blocks_cuda, (table, runs, count, TILES_X, TS, B)),
         (FC.fwd_scan_cuda, (delta, runs, count)),
@@ -207,12 +267,21 @@ def test_stage_wrappers_refuse_cpu_tensors():
                               TILES_X, TS, B)),
         (FC.flat_composite_bwd_cuda, (table, runs, g, logt, logt, carry, acc,
                                       live, TILES_X, TS, B)),
+        (C2.fwd_chunks_cuda, (tab_d, counts, ids, TILES_X, TS, B)),
+        (C2.fwd_combine_cuda, (delta_d, acc_d, counts, B)),
+        (C2.bwd_suffix_cuda, (acc_d, carries, nused, g_d)),
+        (C2.bwd_chunks_cuda, (tab_d, nused, ids, g_d, logt_d, logt_d, carries,
+                              S_d, TILES_X, TS, B)),
+        (C2.composite2_bwd_cuda, (tab_d, nused, ids, g_d, logt_d, logt_d,
+                                  carries, acc_d, TILES_X, TS, B)),
     ]
     FC.reset_launch_counts()
+    C2.reset_launch_counts()
     for fn, args in calls:
         with pytest.raises(ValueError):
             fn(*args)
     assert sum(FC.LAUNCHES.values()) == 0
+    assert sum(C2.LAUNCHES.values()) == 0
 
 
 def test_build_is_keyed_by_source_and_lazy():
