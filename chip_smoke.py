@@ -34,8 +34,27 @@ Phases (any failure exits non-zero and prints no result):
     just before and read after, the last 50 timed; K3/K4 and their stages
     checked again and timed at the timed steps' shape; a profile of 5 more
     dense steps;
- 8. a {"kernels": [...]} line for all four kernels, the card line, and last
-    the result line.
+ 8. the fusionsense path on the same scene and initial state: the
+    fusionsense preset with backend="pallas" through its whole schedule,
+    scaled as the JAX package's full-schedule CPU test scales it (depth cut:
+    ADCConfig(warmup=100, refine_every=50, reset_alpha_every=4,
+    stop_split_at=600), touch anchoring at step 150, binary-opacity margin
+    60, 700 steps instead of 15,000): 10 ADC refines with their counts, the
+    population, capacity, render prefix, K, cover and the boundary's time;
+    4 synthetic touch patches of 400 points anchored by a callback
+    (gel_scale 0.01) and touch_prune at every later boundary; the opacity
+    resets at steps 300 and 500 (largest live opacity after each <= 0.201);
+    frozen-alive count 1,600 after the anchoring and at the end; PSNR
+    rising; ms/step and peak memory; the launch counters zeroed just before
+    and read just after. Then K3/K4 (and their stages) against their plain
+    versions at the post-refine shape, timed; a checkpoint saved and
+    restored into a fresh Trainer, both run 10 more steps (losses within
+    1e-5 relative); the splat PLY written and read back (count =
+    num_alive); 20 more steps with camera optimisation and the SDF loss
+    (finite loss each step, nonzero pose deltas);
+ 9. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+    fusionsense path's post-refine shape, their launches the dense and
+    fusionsense paths' together), the card line, and last the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -69,6 +88,17 @@ TOL_OUT, TOL_ALPHA = 1e-5, 1e-6
 TOL_DTAB_REL = 1e-5
 G_SCALE = 1e-4    # cotangent scale for K2's check: ~30x the per-pixel
 #                   cotangent of a mean loss over 640x480
+# the fusionsense path: the preset's schedule with the depth cut of the JAX
+# package's full-schedule CPU test (tests/test_quality_ledger.py:201-207)
+FS_STEPS, FS_CHUNK = 700, 50
+FS_ADC = dict(warmup=100, refine_every=50, reset_alpha_every=4,
+              stop_split_at=600)
+FS_TOUCH_AT, FS_MARGIN = 150, 60
+FS_PATCHES, FS_PATCH_PTS, FS_GEL = 4, 400, 0.01
+RESET_CEIL = 0.201         # 2 * cull_alpha_thresh, and float slack
+RESUME_STEPS, CAM_STEPS = 10, 20
+TOL_RESUME = 1e-5          # relative, loss of the resumed run
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def log(msg):
@@ -676,6 +706,234 @@ def train_path(torch, tr, name, counters, kernels):
     return launches, ms_step, timed_shape
 
 
+def fusionsense_config():
+    """The fusionsense preset with backend="pallas" at the bench's capacity,
+    scaled to FS_STEPS (FS_ADC, touch at FS_TOUCH_AT, margin FS_MARGIN)."""
+    from fusionsense_tpu_torch.gaussians.adc import ADCConfig
+    from fusionsense_tpu_torch.presets import fusionsense
+
+    cfg = fusionsense("pallas")
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, capacity=CAPACITY,
+                                       binary_opacity_margin=FS_MARGIN),
+        train=dataclasses.replace(cfg.train, iterations=FS_STEPS,
+                                  scan_chunk=FS_CHUNK, bin_refresh_steps=0,
+                                  add_touch_at=FS_TOUCH_AT,
+                                  adc=ADCConfig(**FS_ADC)))
+
+
+def touch_callback(patches, anchor):
+    """Anchor the patches at the first boundary at or past add_touch_at,
+    touch_prune at every later one (the JAX full-schedule test's callback).
+    `anchor` receives the boxes and the frozen-alive count after anchoring."""
+    from fusionsense_tpu_torch.gaussians.touch import (
+        add_touch_patches, touch_prune,
+    )
+
+    def cb(tr):
+        if "boxes" not in anchor and tr.step >= tr.cfg.train.add_touch_at:
+            tr.gaussians, tr.opt, anchor["boxes"] = add_touch_patches(
+                tr.gaussians, tr.opt, patches, gel_scale=FS_GEL)
+            anchor["step"] = tr.step
+            anchor["frozen"] = frozen_alive(tr)
+            anchor["free_before"] = tr.gaussians.capacity - (
+                int(tr.gaussians.num_alive) - anchor["frozen"])
+            return True
+        if "boxes" in anchor:
+            tr.gaussians = touch_prune(tr.gaussians, anchor["boxes"])
+        return False
+    return cb
+
+
+def fs_schedule():
+    """The refine steps of the fusionsense run and those that reset the
+    opacities (at the chip's constants: 10 refines, resets at 300, 500)."""
+    w, every = FS_ADC["warmup"], FS_ADC["refine_every"]
+    steps = list(range(w, min(FS_ADC["stop_split_at"], FS_STEPS + 1), every))
+    resets = [s for s in steps if (s - w) // every > 0
+              and ((s - w) // every) % FS_ADC["reset_alpha_every"] == 0]
+    return steps, resets
+
+
+def frozen_alive(tr):
+    return int((tr.gaussians.frozen & tr.gaussians.alive).sum())
+
+
+def time_boundaries(torch, tr, refines):
+    """Wrap tr.refine_boundary: time each refine boundary (refine,
+    callbacks, recompact) with CUDA events and log its counts."""
+    inner = tr.refine_boundary
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        info = inner()
+        end.record()
+        torch.cuda.synchronize()
+        if info is None:
+            return None
+        rec = {k: int(v) for k, v in info.items()}
+        rec.update(step=tr.step, num_alive=int(tr.gaussians.num_alive),
+                   capacity=tr.gaussians.capacity, render_n=tr.render_n,
+                   K=tr.tile_capacity, cover=tr.cover_tiles,
+                   ms=start.elapsed_time(end))
+        if rec["opacity_reset"]:
+            live = tr.gaussians.alive & ~tr.gaussians.frozen
+            op = torch.sigmoid(tr.gaussians.logit_opacities)[live]
+            rec["max_live_opacity"] = float(op.max()) if op.numel() else 0.0
+        refines.append(rec)
+        log("refine " + "  ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                                  else f"{k} {v}" for k, v in rec.items()))
+        return info
+
+    tr.refine_boundary = timed
+
+
+def step_losses(tr, n):
+    """n more steps, one run each, so every step's loss is logged."""
+    out = []
+    for _ in range(n):
+        tr.run(iterations=tr.step + 1, log=None)
+        out.append(tr.history[-1]["loss"])
+    return out
+
+
+def fusionsense_path(torch, cams, data, init, dev, counters):
+    """The whole FusionSense schedule through K3/K4 (phase 8). Returns the
+    K3/K4 entries at the post-refine shape and their launches."""
+    from fusionsense_tpu_torch.data.synthetic import sphere_touch_patches
+    from fusionsense_tpu_torch.gaussians.io import (
+        export_splat_ply, import_splat_ply,
+    )
+    from fusionsense_tpu_torch.train.trainer import Trainer
+
+    cfg = fusionsense_config()
+    patches = sphere_touch_patches(n_patches=FS_PATCHES,
+                                   pts_per_patch=FS_PATCH_PTS)
+    n_touch = FS_PATCHES * FS_PATCH_PTS
+    fresh = lambda: init.replace(**{k: v.clone()  # noqa: E731
+                                    for k, v in init.fields().items()})
+    anchor = {}
+    tr = Trainer(cfg, cams, data, fresh(), device=dev,
+                 extra_callbacks=[touch_callback(patches, anchor)])
+    refines = []
+    time_boundaries(torch, tr, refines)
+    log(f"fusionsense: capacity {tr.gaussians.capacity}, render_n "
+        f"{tr.render_n}, K {tr.tile_capacity}, cover {tr.cover_tiles}; "
+        f"{FS_STEPS} steps, ADC {FS_ADC}, touch at {FS_TOUCH_AT}, margin "
+        f"{FS_MARGIN}")
+    psnr_start = view_psnr(torch, tr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(iterations=FS_STEPS, log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    psnr_end = view_psnr(torch, tr, 0)
+    frozen_end = frozen_alive(tr)
+    refine_ms = sum(r["ms"] for r in refines)
+    resets = [r for r in refines if r["opacity_reset"]]
+    nonfinite = sum(r["nonfinite_steps"] for r in tr.history)
+    log(f"fusionsense train: {tr.step} steps in {secs:.2f} s, "
+        f"{secs * 1e3 / FS_STEPS:.2f} ms/step (refine boundaries "
+        f"{refine_ms:.1f} ms in all); peak {peak_gb:.3f} GB; alive "
+        f"{int(tr.gaussians.num_alive)}, capacity {tr.gaussians.capacity}, "
+        f"render_n {tr.render_n}, K {tr.tile_capacity}, cover "
+        f"{tr.cover_tiles}; refines {len(refines)} at "
+        f"{[r['step'] for r in refines]}; resets at "
+        f"{[r['step'] for r in resets]}, largest live opacity after each "
+        f"{[r['max_live_opacity'] for r in resets]}; touch anchored at step "
+        f"{anchor.get('step')}: {anchor.get('frozen')} frozen-alive of "
+        f"{n_touch} ({anchor.get('free_before')} free slots before), "
+        f"{frozen_end} at the end; view-0 PSNR {psnr_start:.3f} -> "
+        f"{psnr_end:.3f}; launches {launches}")
+    if not (math.isfinite(tr.history[-1]["loss"]) and nonfinite == 0):
+        raise RuntimeError(f"fusionsense: non-finite training ({nonfinite} "
+                           f"skipped steps)")
+    want_refines, want_resets = fs_schedule()
+    if [r["step"] for r in refines] != want_refines:
+        raise RuntimeError(f"fusionsense: refines at "
+                           f"{[r['step'] for r in refines]}, want "
+                           f"{want_refines}")
+    if ([r["step"] for r in resets] != want_resets
+            or any(r["max_live_opacity"] > RESET_CEIL for r in resets)):
+        raise RuntimeError(f"fusionsense: the opacity resets did not clamp: "
+                           f"{resets}")
+    want_frozen = min(n_touch, anchor.get("free_before", 0))
+    if anchor.get("frozen") != want_frozen or frozen_end != want_frozen:
+        raise RuntimeError(f"fusionsense: frozen-alive {anchor.get('frozen')}"
+                           f" after anchoring, {frozen_end} at the end, want "
+                           f"{want_frozen}")
+    if want_frozen != n_touch:
+        log(f"fusionsense: only {want_frozen} of {n_touch} patch points found "
+            f"a free slot")
+    if not psnr_end > psnr_start:
+        raise RuntimeError(f"fusionsense: PSNR did not improve: {psnr_start} "
+                           f"-> {psnr_end}")
+    names = ("composite2_fwd", "composite2_bwd")
+    if any(launches[k] < FS_STEPS for k in names) or any(
+            launches[f"{k}_plain"] for k in names):
+        raise RuntimeError(f"fusionsense: the path missed a kernel or ran a "
+                           f"plain version: {launches}")
+
+    # K3/K4 at the shape the grown population gives them
+    errs, entries = check_dense_kernels(torch, tr, tr.tile_capacity,
+                                        tr.cover_tiles, timed=True)
+    for k, key in zip(entries, ("fwd", "bwd")):
+        k["max_abs_err"] = errs[key]
+
+    # checkpoint, restore into a fresh trainer, 10 more steps from each
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    ckpt = SCRATCH / f"ckpt_{tr.step}"
+    tr.save(ckpt)
+    tr2 = Trainer(cfg, cams, data, fresh(), device=dev,
+                  extra_callbacks=[touch_callback(patches, dict(anchor))])
+    tr2.restore(ckpt)
+    if (tr2.step, tr2.render_n, tr2.tile_capacity, tr2.cover_tiles) != (
+            tr.step, tr.render_n, tr.tile_capacity, tr.cover_tiles):
+        raise RuntimeError("the restored trainer's policy state differs")
+    la, lb = step_losses(tr, RESUME_STEPS), step_losses(tr2, RESUME_STEPS)
+    rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+    log(f"resume: {RESUME_STEPS} steps from step {FS_STEPS} in the trained "
+        f"and the restored trainer; losses {[f'{x:.6f}' for x in la]}; "
+        f"largest relative difference {rel:.3e} (limit {TOL_RESUME:.0e})")
+    if not rel <= TOL_RESUME:
+        raise RuntimeError("the resumed run disagrees with the trained one")
+
+    # the splat PLY, written and read back
+    n_alive = int(tr.gaussians.num_alive)
+    n_ply = export_splat_ply(SCRATCH / "splat.ply", tr.gaussians)
+    back = import_splat_ply(SCRATCH / "splat.ply", device=dev)
+    alive = tr.gaussians.alive
+    err_ply = float((back.means[:n_ply] - tr.gaussians.means[alive]).abs().max())
+    log(f"splat PLY: {n_ply} Gaussians written, {int(back.num_alive)} read "
+        f"back, num_alive {n_alive}; max|d| means {err_ply:.3e}")
+    if not (n_ply == n_alive == int(back.num_alive) and err_ply == 0.0):
+        raise RuntimeError("the splat PLY does not hold the alive Gaussians")
+
+    # camera optimisation and the SDF loss on the trained state
+    cfg3 = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, camera_opt=True,
+                                       camera_opt_every_k=10),
+        loss=dataclasses.replace(cfg.loss, sdf_lambda=0.1))
+    tr3 = Trainer(cfg3, cams, data, fresh(), device=dev,
+                  extra_callbacks=[touch_callback(patches, dict(anchor))])
+    tr3.restore(ckpt)
+    losses = step_losses(tr3, CAM_STEPS)
+    dmax = float(tr3.cam_state[0].abs().max())
+    log(f"camera_opt (every 10) + sdf_lambda 0.1: {CAM_STEPS} steps from "
+        f"step {FS_STEPS}; losses {[f'{x:.5f}' for x in losses]}; largest "
+        f"|delta| {dmax:.3e}")
+    if not (all(math.isfinite(x) for x in losses) and dmax > 0):
+        raise RuntimeError("camera optimisation / SDF loss failed")
+    return entries, launches
+
+
 def main():
     import torch
 
@@ -713,6 +971,7 @@ def main():
     t0 = time.perf_counter()
     cams, data, init, cfg, gt_budget = build_scene(torch, dev)
     init_dense = init.replace(**{k: v.clone() for k, v in init.fields().items()})
+    init_fs = init.replace(**{k: v.clone() for k, v in init.fields().items()})
     tr = Trainer(cfg, cams, data, init, device=dev)
     torch.cuda.synchronize()
     log(f"scene: {time.perf_counter() - t0:.1f} s (GT budget {gt_budget}); "
@@ -752,9 +1011,17 @@ def main():
         k["launches"] = launches[f"composite2_{key}"]
         k["max_abs_err"] = max(errs0[key], errs1[key])
     profile_steps(torch, tr_d, "dense", ms_step)
+    del tr, tr_d
 
-    # 8. results
-    print(json.dumps({"kernels": kernels + dense_kernels}))
+    # 8. the fusionsense path: the whole schedule, K3/K4 at the grown K
+    fs_kernels, fs_launches = fusionsense_path(torch, cams, data, init_fs,
+                                               dev, (FC, C2))
+    for k, d, key in zip(fs_kernels, dense_kernels, ("fwd", "bwd")):
+        k["launches"] = d["launches"] + fs_launches[f"composite2_{key}"]
+        k["max_abs_err"] = max(k["max_abs_err"], d["max_abs_err"])
+
+    # 9. results
+    print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

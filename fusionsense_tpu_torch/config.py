@@ -28,7 +28,7 @@ class LossConfig:
     flatness_lambda: float = 1.0
     sparse_lambda: float = 0.0
     touch_normal_lambda: float = 1.0
-    sdf_lambda: float = 0.0             # not ported (ROADMAP N4)
+    sdf_lambda: float = 0.0
     sdf_samples: int = 1024
 
 
@@ -63,7 +63,7 @@ class TrainConfig:
     auto_cover_window: bool = True
     cover_trunc_frac: float = 1e-3
     bin_refresh_steps: int = 0
-    camera_opt: bool = False            # not ported (ROADMAP N3)
+    camera_opt: bool = False
     camera_opt_lr: float = 1e-3
     camera_opt_every_k: int = 100
 

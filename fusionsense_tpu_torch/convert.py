@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from fusionsense_tpu_torch.core.cameras import Camera
+from fusionsense_tpu_torch.data.tactile import TouchPatch
 from fusionsense_tpu_torch.device import resolve_device
 from fusionsense_tpu_torch.gaussians.adc import RefineStats
 from fusionsense_tpu_torch.gaussians.store import PARAM_KEYS, GaussianState
@@ -57,3 +58,16 @@ def train_data_from_numpy(d: dict, device=None) -> TrainData:
     return TrainData(**{k: (None if d.get(k) is None else _t(d[k], dev))
                         for k in ("images", "sensor_depths", "mono_depths",
                                   "normals", "masks")})
+
+
+def cam_state_from_numpy(deltas, opt: dict, device=None):
+    """The camera optimiser's (deltas (V, 6), AdamState); `opt` as in
+    adam_from_numpy, keyed "cam_delta"."""
+    return _t(deltas, resolve_device(device)), adam_from_numpy(opt, device)
+
+
+def touch_patches_from_numpy(patches: list[dict]) -> list[TouchPatch]:
+    """Touch patches given as dicts of the TouchPatch fields (numpy), as the
+    port's TouchPatch objects."""
+    return [TouchPatch(**{k: np.array(v) for k, v in p.items()})
+            for p in patches]

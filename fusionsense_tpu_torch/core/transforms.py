@@ -107,3 +107,11 @@ def quat_scale_to_cov3d(quat: torch.Tensor, scale: torch.Tensor) -> torch.Tensor
     R = quat_to_rotmat(quat)
     M = R * scale[..., None, :]
     return M @ M.transpose(-1, -2)
+
+
+def quat_scale_to_inv_cov3d(quat: torch.Tensor, scale: torch.Tensor,
+                            eps: float = 1e-8) -> torch.Tensor:
+    """Inverse covariance without a matrix solve: R S^-2 R^T."""
+    R = quat_to_rotmat(quat)
+    inv_s2 = 1.0 / torch.clamp_min(scale * scale, eps)
+    return (R * inv_s2[..., None, :]) @ R.transpose(-1, -2)

@@ -1,4 +1,5 @@
-"""Procedural test scenes: ring cameras around a textured sphere.
+"""Procedural test scenes: ring cameras around a textured sphere, and
+GelSight-style touch patches on it.
 
 Counterpart of the sphere helpers of fusionsense_tpu/data/synthetic.py. The
 geometry is computed with numpy in float64 and cast to float32, exactly as
@@ -92,3 +93,37 @@ def sphere_depth_normals(camera: Camera, center=(0.0, 0.0, 0.0),
     depth = torch.where(hit, z, torch.zeros_like(z))
     normal = torch.where(hit[..., None], normal, torch.zeros_like(normal))
     return depth, normal, hit.to(torch.float32)
+
+
+def sphere_touch_patches(n_patches=4, pts_per_patch=400, radius=0.5,
+                         cap_deg=8.0, seed=7):
+    """Synthetic GelSight-style patches on the analytic sphere: small
+    spherical caps with exact surface normals and PCA oriented bboxes
+    (numpy TouchPatch objects, the same numbers as the JAX package's)."""
+    from fusionsense_tpu_torch.data.tactile import TouchPatch, oriented_bbox
+
+    rng = np.random.RandomState(seed)
+    patches = []
+    for k in range(n_patches):
+        theta = 2 * np.pi * (k / n_patches + 0.1)
+        phi = np.pi / 2 + rng.uniform(-0.6, 0.6)
+        c = np.array([np.sin(phi) * np.cos(theta),
+                      np.sin(phi) * np.sin(theta), np.cos(phi)])
+        up = np.array([0.0, 0.0, 1.0])
+        t1 = np.cross(up, c)
+        t1 /= np.linalg.norm(t1)
+        t2 = np.cross(c, t1)
+        ang = np.deg2rad(cap_deg)
+        a = np.sqrt(rng.rand(pts_per_patch)) * ang
+        b = rng.rand(pts_per_patch) * 2 * np.pi
+        dirs = (np.cos(a)[:, None] * c[None]
+                + np.sin(a)[:, None] * (np.cos(b)[:, None] * t1[None]
+                                        + np.sin(b)[:, None] * t2[None]))
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        pts = (radius * dirs).astype(np.float32)
+        center, R, ext = oriented_bbox(pts, pad=2e-3)
+        patches.append(TouchPatch(
+            points=pts, colors=np.full_like(pts, 0.6),
+            normals=dirs.astype(np.float32), bbox_center=center,
+            bbox_rot=R, bbox_extent=ext))
+    return patches

@@ -9,10 +9,17 @@ bin_refresh_steps, as the JAX trainer does. The non-finite guard stays on
 the device (torch.where on a 0-d flag), so a step makes no host sync; the
 host reads metrics only at log boundaries.
 
-Not ported yet (each raises or is absent): the ADC refine (the run raises
-when it reaches the first refine step, ROADMAP N1), make_fused_intervals /
-run_fused / sync_policies (N2), camera optimisation (N3), the SDF loss (N4),
-checkpointing and the debug image dumps (A12).
+Between chunks the host runs the refine boundary: the ADC refine when due
+(seeded from the step as the JAX trainer seeds it), the extra callbacks
+(touch anchoring, pruning), and a recompact whenever the alive set can have
+changed; then the periodic checkpoint and, at log boundaries, the capacity,
+render-prefix, K / pair-budget and cover-window policies. Camera
+optimisation (per-view SE3 deltas under an accumulating Adam) and the SDF
+loss are options of the step.
+
+Not ported yet (each raises or is absent): make_fused_intervals / run_fused
+/ sync_policies (ROADMAP N2) and the debug image dumps (`image_log_dir`,
+which need eval.make_render_fn, A14).
 """
 from __future__ import annotations
 
@@ -25,9 +32,10 @@ import torch
 
 from fusionsense_tpu_torch.config import ExperimentConfig
 from fusionsense_tpu_torch.core.cameras import Camera
+from fusionsense_tpu_torch.core.transforms import apply_se3_delta
 from fusionsense_tpu_torch.device import check_on, resolve_device
 from fusionsense_tpu_torch.gaussians.adc import (
-    RefineStats, accumulate_stats, init_stats,
+    RefineStats, accumulate_stats, init_stats, refine, split_noise,
 )
 from fusionsense_tpu_torch.gaussians.resize import (
     compact_train_state, pick_capacity, render_bucket, resize_train_state,
@@ -43,7 +51,10 @@ from fusionsense_tpu_torch.render.composite import TileGrid
 from fusionsense_tpu_torch.render.project import project_gaussians
 from fusionsense_tpu_torch.train import losses as L
 from fusionsense_tpu_torch.train.optim import (
-    DEFAULT_GROUPS, AdamState, adam_step, init_adam,
+    DEFAULT_GROUPS, AdamState, GroupSpec, adam_step, init_adam,
+)
+from fusionsense_tpu_torch.train.sdf_loss import (
+    sample_points_in_gaussians, sdf_loss,
 )
 
 
@@ -61,11 +72,6 @@ class TrainData:
 def check_slice(cfg: ExperimentConfig) -> None:
     """Raise on options whose code is not in this port yet."""
     R.check_slice(cfg.model.rasterize)
-    if cfg.train.camera_opt:
-        raise NotImplementedError(
-            "camera_opt=True is not ported (ROADMAP N3)")
-    if cfg.loss.sdf_lambda > 0:
-        raise NotImplementedError("sdf_lambda > 0 is not ported (ROADMAP N4)")
 
 
 def sh_band_mask(sh_degree: int, step: int, interval: int,
@@ -81,9 +87,11 @@ def sh_band_mask(sh_degree: int, step: int, interval: int,
 def compute_losses(gaussians: GaussianState, camera: Camera, data: TrainData,
                    cam_idx: int, step: int, cfg: ExperimentConfig,
                    tap: torch.Tensor, absgrad_tap: Optional[torch.Tensor] = None,
-                   render_n: Optional[int] = None, bins=None):
+                   render_n: Optional[int] = None, bins=None,
+                   cam_delta: Optional[torch.Tensor] = None):
     """Forward + composite DN-Splatter loss for one camera. render_n bounds
-    the rasterized alive-first prefix."""
+    the rasterized alive-first prefix; cam_delta (6,) is the view's SE3 pose
+    correction (camera optimisation), applied to its viewmat."""
     mc = cfg.model
     means, quats, scales, op, colors = activated(gaussians)
     colors = colors * sh_band_mask(mc.sh_degree, step, mc.sh_degree_interval,
@@ -98,6 +106,8 @@ def compute_losses(gaussians: GaussianState, camera: Camera, data: TrainData,
         if absgrad_tap is not None:
             absgrad_tap = absgrad_tap[:render_n]
     cam_i = camera.index(cam_idx)
+    if cam_delta is not None:
+        cam_i = cam_i.replace(viewmat=apply_se3_delta(cam_i.viewmat, cam_delta))
     normals_g = R.gaussian_flat_normals(quats, scales, means, cam_i.origin)
     out = R.rasterize(
         means, quats, scales, op, colors, cam_i, mc.rasterize,
@@ -114,8 +124,6 @@ def loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step, cfg,
                alive_r, render_n=None):
     """DN-Splatter loss stack on rendered outputs -> (total, (parts, aux))."""
     lc = cfg.loss
-    if lc.sdf_lambda > 0:
-        raise NotImplementedError("sdf_lambda > 0 is not ported (ROADMAP N4)")
     image_gt = data.images[cam_idx]
     mask = data.masks[cam_idx][..., None] if data.masks is not None else None
 
@@ -174,6 +182,20 @@ def loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step, cfg,
         tn = L.touch_normal_loss(normals_g, n_gt, frz)
         parts["touch_normal"] = tn
         total = total + lc.touch_normal_lambda * tn
+    if lc.sdf_lambda > 0:
+        s_means, s_quats, s_scales, s_op, _ = activated(gaussians)
+        if render_n is not None and render_n < gaussians.capacity:
+            s_means, s_quats, s_scales, s_op = (
+                s_means[:render_n], s_quats[:render_n], s_scales[:render_n],
+                s_op[:render_n])
+        # the samples are seeded from the step, as the JAX loss seeds its key
+        gen = torch.Generator(device=out.depth.device).manual_seed(step)
+        pts, _ = sample_points_in_gaussians(gen, s_means, s_quats, s_scales,
+                                            alive_r, lc.sdf_samples)
+        sd = sdf_loss(pts, s_means, s_quats, s_scales, s_op, alive_r,
+                      out.depth, cam_i)
+        parts["sdf"] = sd
+        total = total + lc.sdf_lambda * sd
 
     aux = {
         "radius": out.radius,
@@ -221,8 +243,10 @@ class BinCache:
 
 
 def bin_view(cfg: ExperimentConfig, camera: Camera, gaussians: GaussianState,
-             v: int, render_n: Optional[int]):
-    """Project view v with the current params and build its flat layout."""
+             v: int, render_n: Optional[int],
+             cam_delta: Optional[torch.Tensor] = None):
+    """Project view v with the current params (and its current pose delta)
+    and build its flat layout."""
     rc = cfg.model.rasterize
     grid = TileGrid(camera.width, camera.height, rc.tile_size)
     B = rc.pallas_chunk
@@ -233,7 +257,11 @@ def bin_view(cfg: ExperimentConfig, camera: Camera, gaussians: GaussianState,
         if render_n is not None and render_n < gaussians.capacity:
             means, quats, scales, op = (means[:render_n], quats[:render_n],
                                         scales[:render_n], op[:render_n])
-        proj = project_gaussians(means, quats, scales, op, camera.index(v),
+        cam_v = camera.index(v)
+        if cam_delta is not None:
+            cam_v = cam_v.replace(viewmat=apply_se3_delta(cam_v.viewmat,
+                                                          cam_delta))
+        proj = project_gaussians(means, quats, scales, op, cam_v,
                                  near=rc.near, far=rc.far, eps2d=rc.eps2d,
                                  antialiased=rc.antialiased,
                                  radius_clip=rc.radius_clip)
@@ -246,15 +274,27 @@ def bin_view(cfg: ExperimentConfig, camera: Camera, gaussians: GaussianState,
                                              B))
 
 
-def train_step(gaussians: GaussianState, opt: AdamState, stats: RefineStats,
-               step: int, cam_idx: int, *, cfg: ExperimentConfig,
-               camera: Camera, data: TrainData, adam_groups=None,
-               render_n: Optional[int] = None,
+def _keep_adam(ok: torch.Tensor, new: AdamState, old: AdamState) -> AdamState:
+    """new where the step is finite, else old (every field)."""
+    pick = lambda n, o: {k: torch.where(ok, n[k], o[k]) for k in o}  # noqa: E731
+    return AdamState(m=pick(new.m, old.m), v=pick(new.v, old.v),
+                     acc=pick(new.acc, old.acc),
+                     counts=pick(new.counts, old.counts))
+
+
+def train_step(gaussians: GaussianState, opt: AdamState, cam_state,
+               stats: RefineStats, step: int, cam_idx: int, *,
+               cfg: ExperimentConfig, camera: Camera, data: TrainData,
+               adam_groups=None, render_n: Optional[int] = None,
                cache: Optional[BinCache] = None):
-    """One training step -> (gaussians, opt, stats, metrics). `cfg` must
-    carry the adaptive overrides (patched_cfg); `cache` is the chunk's
-    BinCache (flat backend only), or None to bin every step."""
+    """One training step -> (gaussians, opt, cam_state, stats, metrics).
+    `cfg` must carry the adaptive overrides (patched_cfg); `cache` is the
+    chunk's BinCache (flat backend only), or None to bin every step;
+    cam_state is (deltas (V, 6), AdamState), updated when
+    cfg.train.camera_opt."""
     groups = adam_groups or DEFAULT_GROUPS
+    use_cam_opt = cfg.train.camera_opt
+    cam_deltas, cam_opt = cam_state
     if cfg.model.binary_opacities:
         adc = cfg.train.adc
         gaussians = gaussians.replace(logit_opacities=binary_opacity_surgery(
@@ -264,11 +304,13 @@ def train_step(gaussians: GaussianState, opt: AdamState, stats: RefineStats,
             margin=cfg.model.binary_opacity_margin))
     fb = None
     if cache is not None:
-        fb = cache.lookup(cam_idx, lambda: bin_view(cfg, camera, gaussians,
-                                                    cam_idx, render_n))
+        delta_v = cam_deltas[cam_idx] if use_cam_opt else None
+        fb = cache.lookup(cam_idx, lambda: bin_view(
+            cfg, camera, gaussians, cam_idx, render_n, cam_delta=delta_v))
 
     old = gaussians.params()
     params = {k: v.detach().requires_grad_(True) for k, v in old.items()}
+    deltas = cam_deltas.detach().requires_grad_(use_cam_opt)
     cap = gaussians.capacity
     dev = gaussians.device
     # the kernel backends (pallas, flat) surface gsplat's absgrad through
@@ -280,30 +322,42 @@ def train_step(gaussians: GaussianState, opt: AdamState, stats: RefineStats,
     abs_tap = torch.zeros((cap, 2), device=dev, requires_grad=use_absgrad)
     loss, (_, aux) = compute_losses(
         gaussians.replace(**params), camera, data, cam_idx, step, cfg, tap,
-        absgrad_tap=abs_tap, render_n=render_n, bins=fb)
+        absgrad_tap=abs_tap, render_n=render_n, bins=fb,
+        cam_delta=deltas[cam_idx] if use_cam_opt else None)
     leaves = list(params.values()) + [abs_tap if use_absgrad else tap]
+    if use_cam_opt:
+        leaves.append(deltas)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, leaves)]
-    param_grads = dict(zip(params.keys(), grads[:-1]))
-    tap_grad = grads[-1]
+    n = len(params)
+    param_grads = dict(zip(params.keys(), grads[:n]))
+    tap_grad = grads[n]
 
-    # non-finite guard: skip the whole update on a NaN/inf loss or gradient,
-    # decided on the device (no host sync)
+    # non-finite guard: skip the whole update on a NaN/inf loss or gradient
+    # (the pose deltas' too), decided on the device (no host sync)
     ok = torch.isfinite(loss.detach())
-    for g in param_grads.values():
+    for g in grads[:n] + grads[n + 1:]:
         ok = ok & torch.all(torch.isfinite(g))
     tap_grad = torch.where(ok, tap_grad, torch.zeros_like(tap_grad))
 
     new_p, opt2 = adam_step(old, param_grads, opt, step, gaussians.alive,
                             groups=groups)
     new_p = {k: torch.where(ok, new_p[k], old[k]) for k in old}
-    opt2 = AdamState(
-        m={k: torch.where(ok, opt2.m[k], opt.m[k]) for k in old},
-        v={k: torch.where(ok, opt2.v[k], opt.v[k]) for k in old},
-        acc={k: torch.where(ok, opt2.acc[k], opt.acc[k]) for k in old},
-        counts={k: torch.where(ok, opt2.counts[k], opt.counts[k]) for k in old})
+    opt2 = _keep_adam(ok, opt2, opt)
     gaussians2 = gaussians.replace(**new_p)
+
+    if use_cam_opt:
+        # accumulated, bias-corrected Adam on the (V, 6) pose deltas
+        cam_group = {"cam_delta": GroupSpec(
+            cfg.train.camera_opt_lr, every_k=cfg.train.camera_opt_every_k,
+            eps=1e-8)}
+        cam_p, cam_opt2 = adam_step(
+            {"cam_delta": cam_deltas}, {"cam_delta": grads[-1]}, cam_opt,
+            step, torch.ones(cam_deltas.shape[0], dtype=torch.bool,
+                             device=dev), groups=cam_group)
+        cam_deltas = torch.where(ok, cam_p["cam_delta"], cam_deltas)
+        cam_opt = _keep_adam(ok, cam_opt2, cam_opt)
 
     radius = aux["radius"].detach()
     if radius.shape[0] < cap:
@@ -317,18 +371,26 @@ def train_step(gaussians: GaussianState, opt: AdamState, stats: RefineStats,
                "overflow": aux["overflow"], "trunc_by_win": aux["trunc_by_win"],
                "pairs_used": aux["pairs_used"],
                "nonfinite": (~ok).to(torch.int32)}
-    return gaussians2, opt2, stats2, metrics
+    return gaussians2, opt2, (cam_deltas, cam_opt), stats2, metrics
 
 
 class Trainer:
-    """Chunks of steps, plus the capacity-bucket / render-prefix /
-    tile-capacity / cover-window policies at log boundaries, as the JAX
-    Trainer runs them: the dense backends grow K by the overflow ladder, the
-    flat backend sizes its pair budget from the live pair total."""
+    """Chunks of steps, the refine boundary between them (ADC refine,
+    callbacks, recompact), periodic checkpoints, and the capacity-bucket /
+    render-prefix / tile-capacity / cover-window policies at log
+    boundaries, as the JAX Trainer runs them: the dense backends grow K by
+    the overflow ladder, the flat backend sizes its pair budget from the
+    live pair total.
+
+    extra_callbacks are called with the trainer after every chunk (after
+    the refine when one is due); a truthy return says the alive set
+    changed. Set `checkpoint_dir` to save every cfg.train.steps_per_save
+    steps."""
 
     def __init__(self, cfg: ExperimentConfig, camera: Camera, data: TrainData,
-                 gaussians: GaussianState, adam_groups: Optional[dict] = None,
-                 device=None):
+                 gaussians: GaussianState, scene_scale: float = 1.0,
+                 extra_callbacks: Optional[list] = None,
+                 adam_groups: Optional[dict] = None, device=None):
         check_slice(cfg)
         self.device = resolve_device(device)
         check_on(self.device, viewmat=camera.viewmat, images=data.images,
@@ -339,8 +401,14 @@ class Trainer:
         self.gaussians = gaussians
         self.opt = init_adam(gaussians.params())
         self.stats = init_stats(gaussians.capacity, self.device)
+        self.scene_scale = scene_scale
         self.num_views = data.images.shape[0]
         self.step = 0
+        self.extra_callbacks = extra_callbacks or []
+        self.checkpoint_dir = None   # a path enables the periodic saves
+        self.image_log_dir = None    # debug image dumps: not ported (A14)
+        z6 = torch.zeros((self.num_views, 6), device=self.device)
+        self.cam_state = (z6, init_adam({"cam_delta": z6}))  # pose deltas
         self.max_capacity = gaussians.capacity
         self.auto_capacity = cfg.train.auto_capacity
         self._adam_groups = adam_groups
@@ -431,37 +499,95 @@ class Trainer:
         return (step >= adc.warmup and step < adc.stop_split_at
                 and (step - adc.warmup) % adc.refine_every == 0)
 
+    def refine_boundary(self) -> Optional[dict]:
+        """The host side between chunks: the ADC refine when one is due at
+        this step, then the extra callbacks, then the recompact whenever the
+        alive set can have changed (slots past render_n are never
+        rasterized). Returns the refine's info (device tensors) or None."""
+        cfg = self.cfg
+        info = None
+        changed = False
+        if self._refine_due(self.step):
+            # the JAX trainer's seed: seed * 1_000_003 + step, as uint32
+            seed = (cfg.train.seed * 1_000_003 + self.step) % (1 << 32)
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            noise = split_noise(gen, cfg.train.adc.n_split_samples,
+                                self.gaussians.capacity, self.device)
+            self.gaussians, self.opt, self.stats, info = refine(
+                self.gaussians, self.opt, self.stats, noise, cfg.train.adc,
+                self.step, scene_scale=self.scene_scale)
+            changed = True
+        for cb in self.extra_callbacks:
+            changed |= bool(cb(self))
+        if changed and cfg.train.render_prefix:
+            self._recompact(int(self.gaussians.num_alive))
+        return info
+
+    def save(self, path):
+        """Full checkpoint: model, optimiser, stats, step, camera optimiser
+        and the host policy state (train/checkpoint.py)."""
+        from fusionsense_tpu_torch.train.checkpoint import save_trainer_state
+
+        save_trainer_state(self, path)
+
+    def restore(self, path):
+        """Resume mid-training from a Trainer.save checkpoint."""
+        from fusionsense_tpu_torch.train.checkpoint import restore_trainer_state
+
+        restore_trainer_state(self, path)
+        if self.cfg.train.render_prefix:
+            self._recompact(int(self.gaussians.num_alive))
+        return self
+
+    def run_fused(self, n_intervals: int, interval: Optional[int] = None,
+                  block: bool = False):
+        raise NotImplementedError(
+            "run_fused is not ported (ROADMAP N2: pair it with CUDA graphs)")
+
+    def sync_policies(self, metrics=None):
+        raise NotImplementedError("sync_policies is not ported (ROADMAP N2)")
+
     def run(self, iterations: Optional[int] = None, log=print):
         cfg = self.cfg
+        if self.image_log_dir is not None:
+            raise NotImplementedError(
+                "image_log_dir needs eval.make_render_fn, not ported (ROADMAP "
+                "A14)")
         total = iterations if iterations is not None else cfg.train.iterations
         adc = cfg.train.adc
         refresh = cfg.train.bin_refresh_steps
         t0 = time.time()
         while self.step < total:
             n = min(cfg.train.scan_chunk, total - self.step)
+            # chunks end at refine steps: the refine, compaction and
+            # callbacks run between chunks, never inside the chunk-local
+            # bin cache's life
             next_refine = ((self.step - adc.warmup) // adc.refine_every + 1
                            ) * adc.refine_every + adc.warmup
             if self.step < adc.warmup:
                 next_refine = adc.warmup
             n = max(1, min(n, next_refine - self.step))
-            if self._refine_due(self.step + n):
-                raise NotImplementedError(
-                    f"the ADC refine due at step {self.step + n} is not "
-                    "ported (ROADMAP N1)")
             cfg_p = patched_cfg(cfg, self.tile_capacity, self.cover_tiles)
             cache = (BinCache(self.num_views, refresh)
                      if refresh > 0 and self._is_flat else None)
             nonfinite = []
             for _ in range(n):
-                self.gaussians, self.opt, self.stats, metrics = train_step(
-                    self.gaussians, self.opt, self.stats, self.step,
-                    self.step % self.num_views, cfg=cfg_p, camera=self.camera,
-                    data=self.data, adam_groups=self._adam_groups,
-                    render_n=self.render_n, cache=cache)
+                (self.gaussians, self.opt, self.cam_state, self.stats,
+                 metrics) = train_step(
+                    self.gaussians, self.opt, self.cam_state, self.stats,
+                    self.step, self.step % self.num_views, cfg=cfg_p,
+                    camera=self.camera, data=self.data,
+                    adam_groups=self._adam_groups, render_n=self.render_n,
+                    cache=cache)
                 nonfinite.append(metrics["nonfinite"])
                 self.step += 1
             nf_c = torch.stack(nonfinite).sum()
             self._nf_acc = nf_c if self._nf_acc is None else self._nf_acc + nf_c
+
+            self.refine_boundary()
+            if (self.checkpoint_dir is not None
+                    and self.step % cfg.train.steps_per_save == 0):
+                self.save(f"{self.checkpoint_dir}/ckpt_{self.step}")
 
             if self.step % cfg.train.log_every == 0 or self.step >= total:
                 # one host read for all logged scalars

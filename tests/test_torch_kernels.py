@@ -199,6 +199,108 @@ def test_dense_stages_match_plain_on_card(card, name):
                          dtab_want.reshape(-1, dtab.shape[-1]), 1e-4)
 
 
+def _refine_inputs(seed=3, capacity=4096, n_alive=3400):
+    """A random store with every refine mask set (as in test_torch_adc.py),
+    built with numpy only."""
+    from fusionsense_tpu_torch import convert
+
+    rng = np.random.RandomState(seed)
+    alive = np.zeros(capacity, bool)
+    alive[rng.permutation(capacity)[:n_alive]] = True
+    frozen = np.zeros(capacity, bool)
+    frozen[rng.permutation(np.flatnonzero(alive))[:100]] = True
+    f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    state = convert.state_from_numpy({
+        "means": f32(capacity, 3), "quats": f32(capacity, 4),
+        "log_scales": rng.uniform(np.log(1e-3), np.log(0.8),
+                                  (capacity, 3)).astype(np.float32),
+        "logit_opacities": (1.5 + 1.5 * f32(capacity)),
+        "features_dc": f32(capacity, 3), "features_rest": f32(capacity, 3, 3),
+        "normals": f32(capacity, 3), "alive": alive, "frozen": frozen}, "cpu")
+    params = state.params()
+    opt = convert.adam_from_numpy({
+        "m": {k: np.abs(f32(*v.shape)) for k, v in params.items()},
+        "v": {k: np.abs(f32(*v.shape)) for k, v in params.items()},
+        "acc": {k: f32(*v.shape) for k, v in params.items()},
+        "counts": {k: np.int32(3) for k in params}}, "cpu")
+    stats = convert.stats_from_numpy({
+        "grad2d_acc": rng.uniform(0, 0.05, capacity).astype(np.float32),
+        "count": rng.randint(0, 4, capacity).astype(np.int32),
+        "max_radius": rng.uniform(0, 0.16, capacity).astype(np.float32)}, "cpu")
+    return state, opt, stats
+
+
+def _to(obj, device):
+    """A GaussianState / AdamState / RefineStats with every tensor moved."""
+    import dataclasses
+
+    return type(obj)(**{f.name: (
+        {k: v.to(device) for k, v in getattr(obj, f.name).items()}
+        if isinstance(getattr(obj, f.name), dict)
+        else getattr(obj, f.name).to(device)) for f in dataclasses.fields(obj)})
+
+
+def _assert_state_close(got, want, atol=1e-6):
+    for k, v in want.fields().items():
+        g = getattr(got, k).cpu()
+        if v.dtype == torch.bool:
+            assert torch.equal(g, v), k
+        else:
+            torch.testing.assert_close(g, v, atol=atol, rtol=0, msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_split", [2, 3])
+def test_refine_on_card_matches_cpu(card, n_split):
+    """refine on the card (argsort, cumsum ranks, masked slot writes) equals
+    refine on the CPU for the same split normals."""
+    from fusionsense_tpu_torch.gaussians import adc
+
+    cfg = adc.ADCConfig(warmup=0, refine_every=10, reset_alpha_every=2,
+                        stop_split_at=100, n_split_samples=n_split)
+    state, opt, stats = _refine_inputs()
+    noise = adc.split_noise(torch.Generator().manual_seed(1), n_split,
+                            state.capacity, "cpu")
+    want = adc.refine(state, opt, stats, noise, cfg, 40)
+    got = adc.refine(_to(state, card), _to(opt, card), _to(stats, card),
+                     noise.to(card), cfg, 40)
+    for k in want[3]:
+        assert int(got[3][k]) == int(want[3][k]), k
+    assert int(want[3]["alloc_dropped"]) > 0 and int(want[3]["split"]) > 0
+    _assert_state_close(got[0], want[0])
+    for tree in ("m", "v", "acc"):
+        for k, v in getattr(want[1], tree).items():
+            torch.testing.assert_close(getattr(got[1], tree)[k].cpu(), v,
+                                       atol=1e-6, rtol=0)
+    gen = torch.Generator(device=card).manual_seed(5)
+    drawn = adc.split_noise(gen, n_split, 64, card)
+    assert drawn.device.type == "cuda" and drawn.shape == (max(n_split, 2), 64, 3)
+
+
+@pytest.mark.gpu
+def test_touch_on_card_matches_cpu(card):
+    """add_touch_patches and touch_prune on the card equal the CPU's."""
+    from fusionsense_tpu_torch.data.synthetic import sphere_touch_patches
+    from fusionsense_tpu_torch.gaussians import touch
+
+    patches = sphere_touch_patches(n_patches=4, pts_per_patch=100)
+    state, opt, _ = _refine_inputs(seed=4)
+    # half the live Gaussians on the sphere, so the boxes catch intruders
+    state.means[::2] = 0.5 * torch.nn.functional.normalize(state.means[::2],
+                                                           dim=-1)
+    want = touch.add_touch_patches(state, opt, patches, gel_scale=0.01)
+    got = touch.add_touch_patches(_to(state, card), _to(opt, card), patches,
+                                  gel_scale=0.01)
+    _assert_state_close(got[0], want[0])
+    for tree in ("m", "v", "acc"):
+        for k, v in getattr(want[1], tree).items():
+            assert torch.equal(getattr(got[1], tree)[k].cpu(), v), (tree, k)
+    assert int(want[0].frozen.sum()) == 100 + 400
+    pruned = touch.touch_prune(got[0], got[2])
+    assert torch.equal(pruned.alive.cpu(), touch.touch_prune(want[0],
+                                                             want[2]).alive)
+
+
 def test_cpu_tensors_take_the_plain_version():
     FC.reset_launch_counts()
     tab, bt, _, bc, g_out, g_alpha = case("mixed")

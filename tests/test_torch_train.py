@@ -309,43 +309,81 @@ def test_step_losses_and_gradients_match_jax(fixture):
                                    err_msg=name)
 
 
-def _runs_match(fixture, backend):
+# the ADC schedule of the run tests: refines at steps 4, 8 and 12, the
+# opacity reset at 12; splits (big on screen or in the world) and dups both
+ADC_KW = dict(warmup=4, refine_every=4, reset_alpha_every=2,
+              stop_split_at=100, densify_grad_thresh=5e-4,
+              densify_size_thresh=0.14, split_screen_size=0.27,
+              cull_alpha_thresh=0.09)
+
+
+def _with(cfg, mod, adc=None, **train_kw):
+    """cfg with the ADC schedule (the package's ADCConfig) and train fields."""
+    adc_cls = ADCJ.ADCConfig if mod is CFJ else ADCT.ADCConfig
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, adc=adc_cls(**(adc or ADC_KW)), **train_kw))
+
+
+@pytest.fixture
+def jax_split_noise(monkeypatch):
+    """The port's trainer draws JAX's split normals: the generator's seed is
+    the JAX trainer's per-step seed, so the same PRNG key is rebuilt."""
+    def noise(generator, n, capacity, device=None):
+        key = jax.random.PRNGKey(np.uint32(generator.initial_seed()))
+        keys = jax.random.split(key, max(n, 2))
+        return torch.tensor(np.stack([np.asarray(jax.random.normal(
+            k, (capacity, 3))) for k in keys]), device=device)
+    monkeypatch.setattr(TRT, "split_noise", noise)
+
+
+def _runs_match(fixture, backend, train_kw=None, callbacks=(None, None),
+                boundaries=(4, 8, 12)):
+    """Both trainers through the same boundaries (refines at 4, 8, 12):
+    after each, the population, capacity bucket, render prefix, K / pair
+    budget and cover window exactly, the logged loss within rtol 2e-3."""
     cams_j, data_j, st_j = _jax_side(fixture)
     cams_t, data_t, st_t = _torch_side(fixture)
-    tr_j = TRJ.Trainer(_cfg(CFJ, RCJ, backend), cams_j, data_j, st_j)
-    tr_t = TRT.Trainer(_cfg(CFT, RCT, backend), cams_t, data_t, st_t,
+    train_kw = train_kw or {}
+    tr_j = TRJ.Trainer(_with(_cfg(CFJ, RCJ, backend), CFJ, **train_kw),
+                       cams_j, data_j, st_j,
+                       extra_callbacks=[c for c in callbacks[:1] if c])
+    tr_t = TRT.Trainer(_with(_cfg(CFT, RCT, backend), CFT, **train_kw),
+                       cams_t, data_t, st_t,
+                       extra_callbacks=[c for c in callbacks[1:] if c],
                        device="cpu")
-    hj = tr_j.run(iterations=12, log=None)
-    ht = tr_t.run(iterations=12, log=None)
-    assert [r["step"] for r in ht] == [r["step"] for r in hj] == [4, 8, 12]
-    for rt, rj in zip(ht, hj):
+    for b in boundaries:
+        tr_j.run(iterations=b, log=None)
+        tr_t.run(iterations=b, log=None)
+        rj, rt = tr_j.history[-1], tr_t.history[-1]
+        assert rt["step"] == rj["step"] == b
         np.testing.assert_allclose(rt["loss"], rj["loss"], rtol=2e-3)
         assert rt["nonfinite_steps"] == rj["nonfinite_steps"] == 0
-        assert rt["num_gaussians"] == rj["num_gaussians"]
-        assert rt["capacity"] == rj["capacity"]
-        assert rt["tile_overflow"] == rj["tile_overflow"]
-    assert (tr_t.render_n, tr_t.tile_capacity, tr_t.cover_tiles) == (
-        tr_j.render_n, tr_j.tile_capacity, tr_j.cover_tiles)
+        for k in ("num_gaussians", "capacity", "tile_overflow"):
+            assert rt[k] == rj[k], (b, k, rt[k], rj[k])
+        assert (tr_t.render_n, tr_t.tile_capacity, tr_t.cover_tiles) == (
+            tr_j.render_n, tr_j.tile_capacity, tr_j.cover_tiles), b
+    # the refines grew the population
+    assert tr_t.history[-1]["num_gaussians"] > 150
     agree, total = 0, 0
     for k, v in tr_t.gaussians.params().items():
         a, b = v.numpy(), np.asarray(getattr(tr_j.gaussians, k))
         agree += np.sum(np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b))
         total += a.size
     assert agree / total >= 0.999, agree / total
-    return tr_t
+    return tr_t, tr_j
 
 
-def test_trainer_run_matches_jax(fixture):
+def test_trainer_run_matches_jax(fixture, jax_split_noise):
     _runs_match(fixture, "flat")
 
 
 @pytest.mark.parametrize("backend", ["jax", "pallas"])
-def test_dense_trainer_run_matches_jax(fixture, backend):
+def test_dense_trainer_run_matches_jax(fixture, jax_split_noise, backend):
     """12 steps with bin_refresh_steps > 0 left in the config, which the
-    dense trainer ignores in both packages. The fixture's dead slots pile
-    into the centre tiles, so the K ladder fires at each log boundary
-    (128 -> 256 -> 384 -> 640) in both."""
-    tr_t = _runs_match(fixture, backend)
+    dense trainer ignores in both packages, through three refines. The
+    fixture's dead slots pile into the centre tiles, so the K ladder fires
+    at the log boundaries in both."""
+    tr_t, _ = _runs_match(fixture, backend)
     assert tr_t.tile_capacity > RKW["tile_capacity"]
 
 
@@ -382,17 +420,151 @@ def test_presets_match_jax(name, backend):
         PJ.PRESETS[name](backend))
 
 
-def test_refine_step_and_off_slice_options_raise(fixture):
+def test_touch_callback_run_matches_jax(fixture, jax_split_noise):
+    """Touch patches anchored by a callback at the step-8 boundary (after
+    that refine), touch_prune at every later boundary, in both packages."""
+    from fusionsense_tpu.gaussians import touch as TJ
+    from fusionsense_tpu_torch.gaussians import touch as TT
+
+    patches_j = SYNJ.sphere_touch_patches(n_patches=2, pts_per_patch=60)
+    patches_t = SYNT.sphere_touch_patches(n_patches=2, pts_per_patch=60)
+
+    def touch_cb(mod, patches):
+        boxes = []
+
+        def cb(tr):
+            if not boxes and tr.step >= tr.cfg.train.add_touch_at:
+                tr.gaussians, tr.opt, box = mod.add_touch_patches(
+                    tr.gaussians, tr.opt, patches, gel_scale=0.01)
+                boxes.append(box)
+                return True
+            if boxes:
+                tr.gaussians = mod.touch_prune(tr.gaussians, boxes[0])
+            return False
+        return cb
+
+    tr_t, tr_j = _runs_match(
+        fixture, "pallas", train_kw={"add_touch_at": 8},
+        callbacks=(touch_cb(TJ, patches_j), touch_cb(TT, patches_t)))
+    frz_t = int((tr_t.gaussians.frozen & tr_t.gaussians.alive).sum())
+    frz_j = int(np.sum(np.asarray(tr_j.gaussians.frozen & tr_j.gaussians.alive)))
+    assert frz_t == frz_j == 120
+
+
+def test_camera_opt_run_matches_jax(fixture, jax_split_noise):
+    """Camera optimisation on the flat backend (the bin cache projects with
+    the pose deltas) with the deltas' Adam stepping every 2 steps."""
+    tr_t, tr_j = _runs_match(fixture, "flat", train_kw={
+        "camera_opt": True, "camera_opt_every_k": 2})
+    d_t = tr_t.cam_state[0].numpy()
+    d_j = np.asarray(tr_j.cam_state[0])
+    np.testing.assert_allclose(d_t, d_j, atol=1e-5, rtol=0)
+    assert np.abs(d_t).max() > 1e-4
+    for tree in ("m", "v"):
+        np.testing.assert_allclose(
+            getattr(tr_t.cam_state[1], tree)["cam_delta"].numpy(),
+            np.asarray(getattr(tr_j.cam_state[1], tree)["cam_delta"]),
+            atol=1e-6, rtol=1e-3)
+    assert int(tr_t.cam_state[1].counts["cam_delta"]) == 6
+
+
+def test_sdf_loss_matches_jax(fixture):
+    """The SDF loss and its gradients with the samples passed in: JAX's
+    own draw for its key goes into the port's sdf_loss."""
+    from fusionsense_tpu.train import sdf_loss as SDJ
+    from fusionsense_tpu_torch.train import sdf_loss as SDT
+
+    cams_j = fixture[0]
+    cams_t = SYNT.ring_cameras(n_views=V, width=W, height_px=H, focal=60.0,
+                               device="cpu")
+    init = fixture[2]
+    rng = np.random.RandomState(5)
+    depth = (fixture[1]["sensor_depths"][1]
+             + 0.05 * rng.normal(size=(H, W))).astype(np.float32)
+    alive = init["alive"].copy()
+    alive[:10] = False
+    args = [init["means"], init["quats"], np.exp(init["log_scales"]),
+            1.0 / (1.0 + np.exp(-init["logit_opacities"]))]
+    key = jax.random.PRNGKey(3)
+    pts, idx = SDJ.sample_points_in_gaussians(
+        key, *[jnp.asarray(a) for a in args[:3]], jnp.asarray(alive), 256)
+    assert np.asarray(alive)[np.asarray(idx)].all()
+
+    def loss_j(m, q, sc, o):
+        return SDJ.sdf_loss(key, m, q, sc, o, jnp.asarray(alive),
+                            jnp.asarray(depth), cams_j.index(1), n_samples=256)
+
+    lj, gj = jax.value_and_grad(loss_j, argnums=(0, 1, 2, 3))(
+        *[jnp.asarray(a) for a in args])
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    lt = SDT.sdf_loss(torch.tensor(np.asarray(pts)), *leaves,
+                      torch.tensor(alive), torch.tensor(depth), cams_t.index(1))
+    gt = torch.autograd.grad(lt, leaves)
+    assert float(lj) > 0
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-4)
+    for name, a, b in zip(("means", "quats", "scales", "opacities"), gt, gj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=2e-2, err_msg=name)
+        assert np.abs(np.asarray(b)).max() > 0, name
+
+    gen = torch.Generator().manual_seed(3)
+    p1, i1 = SDT.sample_points_in_gaussians(
+        gen, *[torch.tensor(a) for a in args[:3]], torch.tensor(alive), 256)
+    p2, i2 = SDT.sample_points_in_gaussians(
+        torch.Generator().manual_seed(3), *[torch.tensor(a) for a in args[:3]],
+        torch.tensor(alive), 256)
+    assert p1.shape == (256, 3) and i1.shape == (256,)
+    assert torch.equal(p1, p2) and torch.equal(i1, i2)
+    assert bool(torch.tensor(alive)[i1].all())
+
+
+def test_sdf_and_camera_opt_train(fixture):
+    """The trainer with sdf_lambda > 0 and camera optimisation on every
+    backend: finite losses, the sdf term in the loss, moving deltas."""
     cams_t, data_t, st_t = _torch_side(fixture)
     cfg = _cfg(CFT, RCT)
-    for bad in (dataclasses.replace(cfg, train=dataclasses.replace(
-                    cfg.train, camera_opt=True)),
-                dataclasses.replace(cfg, loss=dataclasses.replace(
-                    cfg.loss, sdf_lambda=0.1))):
-        with pytest.raises(NotImplementedError):
-            TRT.Trainer(bad, cams_t, data_t, st_t, device="cpu")
-    early = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, adc=ADCT.ADCConfig(warmup=2)))
-    tr = TRT.Trainer(early, cams_t, data_t, st_t, device="cpu")
-    with pytest.raises(NotImplementedError):
+    cfg = dataclasses.replace(
+        cfg, loss=dataclasses.replace(cfg.loss, sdf_lambda=0.1, sdf_samples=128),
+        train=dataclasses.replace(cfg.train, camera_opt=True,
+                                  camera_opt_every_k=2))
+    for backend in ("flat", "jax", "pallas"):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, rasterize=dataclasses.replace(cfg.model.rasterize,
+                                                     backend=backend)))
+        tr = TRT.Trainer(c, cams_t, data_t, st_t, device="cpu")
+        hist = tr.run(iterations=4, log=None)
+        assert np.isfinite(hist[-1]["loss"]) and hist[-1]["nonfinite_steps"] == 0
+        assert float(tr.cam_state[0].abs().max()) > 0
+    cam = cams_t.index(0)
+    tap = torch.zeros((st_t.capacity, 2))
+    _, (parts, _) = TRT.compute_losses(st_t, cams_t, data_t, 0, 7, c, tap)
+    assert float(parts["sdf"]) > 0
+    g = torch.Generator().manual_seed(7)
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.train import sdf_loss as SDT
+
+    m, q, sc, o, _ = activated(st_t)
+    pts, _ = SDT.sample_points_in_gaussians(g, m, q, sc, st_t.alive, 128)
+    out_depth = TRT.R.rasterize(*activated(st_t), cam, c.model.rasterize,
+                                device="cpu").depth
+    torch.testing.assert_close(parts["sdf"], SDT.sdf_loss(
+        pts, m, q, sc, o, st_t.alive, out_depth, cam))
+
+
+def test_off_slice_options_raise(fixture):
+    """What is left unported raises, naming its ROADMAP item."""
+    cams_t, data_t, st_t = _torch_side(fixture)
+    cfg = _cfg(CFT, RCT)
+    bf16 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, rasterize=dataclasses.replace(cfg.model.rasterize,
+                                                 blend_bf16=True)))
+    with pytest.raises(NotImplementedError, match="N5"):
+        TRT.Trainer(bf16, cams_t, data_t, st_t, device="cpu")
+    tr = TRT.Trainer(cfg, cams_t, data_t, st_t, device="cpu")
+    for fn in (lambda: tr.run_fused(2), tr.sync_policies):
+        with pytest.raises(NotImplementedError, match="N2"):
+            fn()
+    tr.image_log_dir = "images"
+    with pytest.raises(NotImplementedError, match="A14"):
         tr.run(iterations=4, log=None)
+    assert tr.step == 0
