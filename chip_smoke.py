@@ -4,9 +4,10 @@ its CUDA kernels against its plain PyTorch version.
     python3 chip_smoke.py             # from the root of a checkout, one card
 
 Phases (any failure exits non-zero and prints no result):
- 1. device and build: the card's name, power limit and SM clock; the nvcc
-    build of every kernel (one process per source, all at once) with its
-    ptxas register / shared-memory report;
+ 1. device and build: the card's name, power limit and SM clock; whether
+    Pillow, scipy and scikit-learn import (the port's path needs Pillow and
+    scipy); the nvcc build of every kernel (one process per source, all at
+    once) with its ptxas register / shared-memory report;
  2. the bench scene (bench.py's workload, built with the port's own code):
     9 views at 640x480, 60,000 GT points rendered through K1, a 30,000-point
     perturbed initial state at capacity 131,072, the flat backend at tile 32;
@@ -52,9 +53,27 @@ Phases (any failure exits non-zero and prints no result):
     1e-5 relative); the splat PLY written and read back (count =
     num_alive); 20 more steps with camera optimisation and the SDF loss
     (finite loss each step, nonzero pose deltas);
- 9. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
-    fusionsense path's post-refine shape, their launches the dense and
-    fusionsense paths' together), the card line, and last the result line.
+ 9. fs-train's default backend, jax (the plain PyTorch compositor), on the
+    same scene and initial state: the dn_splatter preset for 60 steps,
+    ms/step, peak memory, view-0 PSNR rising, no kernel launched;
+10. fs-train end to end from a capture on disk: the port's blob capture
+    written on the card at 640x480 (focal 550) with a touch patch, its seed
+    cloud dropped from transforms.json so the visual hull and the seed
+    cloud from depth both run; cli.train.main with --backend pallas for
+    600 steps (warmup 100, stop-split 600, so the high-grad export fires at
+    step 100; touch at 150, checkpoints every 300, an empty --mesh), then a
+    second main resumed from ckpt_300 to step 360. Seconds per stage, the
+    prior and seed counts, ms/step, peak memory, the K3/K4 launches (their
+    plain twins never), the metrics.json means and the logged PSNR, which
+    must rise; every artifact read back through the port's own readers; the
+    resumed run must enter at step 300 with the patch frozen, and its
+    high-grad export (from the settled population) must find points whose
+    clusters and ranks read back; then K3/K4 against their plain versions
+    on the first run's trained state;
+11. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+    fusionsense path's post-refine shape, their launches the dense,
+    fusionsense and pipeline paths' together, their errors the largest of
+    every check), the card line, and last the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -99,6 +118,12 @@ RESET_CEIL = 0.201         # 2 * cull_alpha_thresh, and float slack
 RESUME_STEPS, CAM_STEPS = 10, 20
 TOL_RESUME = 1e-5          # relative, loss of the resumed run
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the pipeline phase: fs-train in the port on the blob capture written at
+# the bench's width (the fixture's focal 110 at 128x96, scaled x5)
+PIPE_ITERS, PIPE_WARMUP, PIPE_STOP_SPLIT = 600, 100, 600
+PIPE_TOUCH_AT, PIPE_SAVE, PIPE_RESUME_ITERS = 150, 300, 360
+PIPE_METRICS = ("psnr", "masked_psnr", "ssim", "depth_abs_rel", "normal_mae",
+                "fps", "num_gaussians")
 
 
 def log(msg):
@@ -934,6 +959,216 @@ def fusionsense_path(torch, cams, data, init, dev, counters):
     return entries, launches
 
 
+def installations():
+    """Whether Pillow, scipy and scikit-learn import here (the port's path
+    needs Pillow and scipy)."""
+    import importlib
+
+    found = {}
+    for name in ("PIL", "scipy", "sklearn"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
+def jax_backend_path(torch, cams, data, init, dev, counters, card):
+    """The dn_splatter preset with backend="jax" (fs-train's default: the
+    plain PyTorch compositor, no kernel of K1-K4) on the bench scene."""
+    from fusionsense_tpu_torch.presets import dn_splatter
+    from fusionsense_tpu_torch.train.trainer import Trainer
+
+    cfg = dn_splatter("jax")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, capacity=CAPACITY),
+        train=dataclasses.replace(cfg.train, scan_chunk=50,
+                                  bin_refresh_steps=0))
+    tr = Trainer(cfg, cams, data, init, device=dev)
+    log(f"jax backend: capacity {tr.gaussians.capacity}, render_n "
+        f"{tr.render_n}, tile_capacity {tr.tile_capacity}; {card}")
+    launches, _, _ = train_path(torch, tr, "jax backend", counters, ())
+    if any(launches.values()):
+        raise RuntimeError(f"jax backend: a kernel launched: {launches}")
+
+
+def _timed_calls(torch, targets, times, results):
+    """Wrap each (owner, name) so its calls are timed, device synchronised,
+    into times[name] and their last result kept in results[name]. Returns
+    the originals, to put back."""
+    saved = []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[_name] = times.get(_name, 0.0) + time.perf_counter() - t0
+            results[_name] = out
+            return out
+        setattr(owner, name, timed)
+    return saved
+
+
+def pipeline_path(torch, dev, counters, card):
+    """fs-train in the port, end to end from a capture on disk (phase 11):
+    the blob capture written on the card, its seed cloud dropped so the
+    visual hull and the seed cloud from depth both run; then
+    cli.train.main with the pallas backend (K3/K4) for PIPE_ITERS steps and
+    a second main resumed from the mid-run checkpoint. Every artifact is
+    read back through the port's own readers; then K3/K4 are held against
+    their plain versions on the first run's trained state. Returns the
+    K3/K4 launches of both runs and those checks' errors."""
+    import shutil
+
+    import numpy as np
+
+    from fusionsense_tpu_torch import pipeline as P
+    from fusionsense_tpu_torch.cli.train import main as fs_train
+    from fusionsense_tpu_torch.data.fixture import write_blob_scene
+    from fusionsense_tpu_torch.data.image_io import read_image
+    from fusionsense_tpu_torch.train.checkpoint import load_checkpoint
+    from fusionsense_tpu_torch.utils.ply import read_pcd, read_ply
+
+    scene, out_root = SCRATCH / "blob", SCRATCH / "pipeline"
+    for d in (scene, out_root):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_blob_scene(scene, n_views=N_VIEWS, width=WIDTH, height=HEIGHT,
+                     focal=FOCAL, device=dev)
+    torch.cuda.synchronize()
+    log(f"pipeline: blob capture {N_VIEWS} views at {WIDTH}x{HEIGHT}, focal "
+        f"{FOCAL}, written in {time.perf_counter() - t0:.2f} s; {card}")
+    tj = scene / "transforms.json"
+    meta = json.loads(tj.read_text())
+    meta.pop("ply_file_path")          # the hull and the seed cloud both run
+    tj.write_text(json.dumps(meta))
+
+    times, results, entries = {}, {}, []
+    run = P.Trainer.run
+
+    def run_logged(tr, *a, **kw):      # (step, frozen-alive) on entry
+        entries.append((tr.step, frozen_alive(tr)))
+        return run(tr, *a, **kw)
+    P.Trainer.run = run_logged
+    saved = [(P.Trainer, "run", run)] + _timed_calls(torch, [
+        (P, "parse_transforms"), (P, "load_train_data"), (P, "visual_hull"),
+        (P, "seed_pcd_from_depths"), (P, "init_from_points"),
+        (P, "export_high_grad_pcd"), (P, "evaluate"), (P.Trainer, "run")],
+        times, results)
+    args = ["--load-touches", "--backend", "pallas", "--iterations",
+            str(PIPE_ITERS), "--warmup-length", str(PIPE_WARMUP),
+            "--stop-split-at", str(PIPE_STOP_SPLIT), "--add-touch-at",
+            str(PIPE_TOUCH_AT), "--steps-per-save", str(PIPE_SAVE), "--mesh"]
+    out = out_root / "dn_splatter"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset_launch_counts()
+        pipe = fs_train(["--data", str(scene), "--output-dir", str(out_root),
+                         *args], device=dev)
+        torch.cuda.synchronize()
+        first = dict(times)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_hull = len(results["visual_hull"])
+        n_seed = len(results["seed_pcd_from_depths"][0])
+        n_init = int(results["init_from_points"].num_alive)
+        n_high = results["export_high_grad_pcd"]
+        frozen_end = frozen_alive(pipe.trainer)
+        hist = pipe.trainer.history
+        times.clear()
+        resume = out / f"ckpt_{PIPE_SAVE}"
+        args[args.index("--iterations") + 1] = str(PIPE_RESUME_ITERS)
+        pipe2 = fs_train(["--data", str(scene), "--output-dir", str(out_root),
+                          "--experiment-name", "resume", "--resume",
+                          str(resume), *args], device=dev)
+        torch.cuda.synchronize()
+        n_high2 = results["export_high_grad_pcd"]
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    # K3/K4 against their plain versions at the shape this trainer gave them
+    log(f"pipeline: K3/K4 on the first run's state at step "
+        f"{pipe.trainer.step} ({int(pipe.trainer.gaussians.num_alive)} alive)")
+    errs, _ = check_dense_kernels(torch, pipe.trainer, pipe.trainer.tile_capacity,
+                                  pipe.trainer.cover_tiles, timed=False)
+
+    res = json.loads((out / "metrics.json").read_text())
+    grids = sorted((out / "log_images").glob("step_*.png"))
+    shapes = {read_image(g).shape for g in grids}
+    fg, merged = read_ply(out / "foreground_pcd.ply"), read_ply(
+        out / "merged_pcd.ply")
+    high = read_pcd(out / "high_grad_pts.pcd")
+    # the resumed run exports from the settled population (step 300 on)
+    high2 = read_pcd(out_root / "resume" / "high_grad_pts.pcd")
+    clusters = np.unique(high2["cluster"]) if n_high2 else np.zeros(0)
+    ranks = np.unique(high2["grad_rank"]) if n_high2 else np.zeros(0)
+    ckpts = {}
+    for s in (PIPE_SAVE, PIPE_ITERS):      # (step, alive) read back
+        g, _, _, step = load_checkpoint(out / f"ckpt_{s}", device=dev)
+        ckpts[s] = (step, int(g.num_alive))
+    stage_s = {
+        "parse+load": first["parse_transforms"] + first["load_train_data"],
+        "hull": first["visual_hull"], "seed cloud": first["seed_pcd_from_depths"],
+        "train": first["run"], "high-grad export": first["export_high_grad_pcd"],
+        "eval": first["evaluate"]}
+    mean = res["mean"]
+    log(f"pipeline stages (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage_s.items())
+        + f"; train {1e3 * (first['run'] - first['export_high_grad_pcd']) / PIPE_ITERS:.2f}"
+        f" ms/step (the high-grad export taken out); peak {peak_gb:.3f} GB; "
+        f"{card}")
+    log(f"pipeline: hull {n_hull} points, seed cloud {n_seed}, {n_init} after "
+        f"the capacity stride; high-grad {n_high} points at step "
+        f"{PIPE_STOP_SPLIT - 500}, {n_high2} in the resumed run ({len(clusters)}"
+        f" clusters, ranks {ranks.astype(int).tolist()}); debug grids "
+        f"{len(grids)} {sorted(shapes)}; touch frozen-alive {frozen_end}; "
+        f"checkpoints (step, alive) {ckpts}; K3/K4 launches {launches}")
+    log(f"pipeline metrics.json mean: "
+        + ", ".join(f"{k} {mean[k]:.4f}" for k in PIPE_METRICS)
+        + f"; logged PSNR {hist[0]['psnr']:.3f} (step {hist[0]['step']}) -> "
+        f"{hist[-1]['psnr']:.3f} (step {hist[-1]['step']})")
+    log(f"pipeline resume: trainer entered at (step, frozen-alive) "
+        f"{entries[-1]}; {pipe2.trainer.step} steps at the end; "
+        f"{1e3 * times['run'] / (PIPE_RESUME_ITERS - PIPE_SAVE):.2f} ms/step")
+
+    if not (len(fg["points"]) == n_hull > 0 and len(merged["points"]) == n_seed
+            and len(high["points"]) == n_high):
+        raise RuntimeError("pipeline: a prior's file does not hold its points")
+    if not grids or shapes != {(HEIGHT, 4 * WIDTH, 3)}:
+        raise RuntimeError(f"pipeline: debug grids {len(grids)} {shapes}")
+    if not all(step == s and n > 0 for s, (step, n) in ckpts.items()):
+        raise RuntimeError(f"pipeline: checkpoints {ckpts}")
+    if not all(math.isfinite(v) for v in mean.values()):
+        raise RuntimeError(f"pipeline: a metric is not finite: {mean}")
+    if not hist[-1]["psnr"] > hist[0]["psnr"]:
+        raise RuntimeError("pipeline: the logged PSNR did not rise")
+    names = ("composite2_fwd", "composite2_bwd")
+    if any(launches[k] < PIPE_ITERS for k in names) or any(
+            launches[f"{k}_plain"] for k in names):
+        raise RuntimeError(f"pipeline: the path missed K3/K4 or ran a plain "
+                           f"version: {launches}")
+    if not (entries[-1] == (PIPE_SAVE, frozen_end) and frozen_end > 0
+            and pipe2.trainer.step == PIPE_RESUME_ITERS
+            and frozen_alive(pipe2.trainer) == frozen_end):
+        raise RuntimeError(f"pipeline: the resumed run entered at "
+                           f"{entries[-1]}, want ({PIPE_SAVE}, {frozen_end})")
+    if not np.isfinite(high["points"]).all():
+        raise RuntimeError("pipeline: non-finite high-grad points")
+    if not (n_high2 > 0 and len(high2["points"]) == n_high2
+            and np.isfinite(high2["points"]).all() and (clusters >= 0).all()
+            and ranks.tolist() == list(range(len(clusters)))):
+        raise RuntimeError(f"pipeline: the resumed run's high-grad export: "
+                           f"{n_high2} points, clusters {clusters.tolist()}, "
+                           f"ranks {ranks.tolist()}")
+    return launches, errs
+
+
 def main():
     import torch
 
@@ -953,6 +1188,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    log("installations: " + ", ".join(
+        f"{k} {'imports' if v else 'missing'}"
+        for k, v in installations().items()))
 
     # 1. device and build
     card = nvidia_smi("name,power.limit")
@@ -972,6 +1210,7 @@ def main():
     cams, data, init, cfg, gt_budget = build_scene(torch, dev)
     init_dense = init.replace(**{k: v.clone() for k, v in init.fields().items()})
     init_fs = init.replace(**{k: v.clone() for k, v in init.fields().items()})
+    init_jax = init.replace(**{k: v.clone() for k, v in init.fields().items()})
     tr = Trainer(cfg, cams, data, init, device=dev)
     torch.cuda.synchronize()
     log(f"scene: {time.perf_counter() - t0:.1f} s (GT budget {gt_budget}); "
@@ -1016,11 +1255,19 @@ def main():
     # 8. the fusionsense path: the whole schedule, K3/K4 at the grown K
     fs_kernels, fs_launches = fusionsense_path(torch, cams, data, init_fs,
                                                dev, (FC, C2))
-    for k, d, key in zip(fs_kernels, dense_kernels, ("fwd", "bwd")):
-        k["launches"] = d["launches"] + fs_launches[f"composite2_{key}"]
-        k["max_abs_err"] = max(k["max_abs_err"], d["max_abs_err"])
 
-    # 9. results
+    # 9. fs-train's default backend, jax (the plain compositor)
+    jax_backend_path(torch, cams, data, init_jax, dev, (FC, C2), card)
+
+    # 10. fs-train end to end from a capture on disk, through K3/K4
+    pipe_launches, pipe_errs = pipeline_path(torch, dev, (FC, C2), card)
+    for k, d, key in zip(fs_kernels, dense_kernels, ("fwd", "bwd")):
+        k["launches"] = (d["launches"] + fs_launches[f"composite2_{key}"]
+                         + pipe_launches[f"composite2_{key}"])
+        k["max_abs_err"] = max(k["max_abs_err"], d["max_abs_err"],
+                               pipe_errs[key])
+
+    # 11. results
     print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

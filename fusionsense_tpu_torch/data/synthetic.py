@@ -1,9 +1,13 @@
-"""Procedural test scenes: ring cameras around a textured sphere, and
-GelSight-style touch patches on it.
+"""Procedural test scenes: ring cameras around a textured sphere,
+GelSight-style touch patches on it, the bumpy "blob" and the non-convex
+"hard" object.
 
-Counterpart of the sphere helpers of fusionsense_tpu/data/synthetic.py. The
-geometry is computed with numpy in float64 and cast to float32, exactly as
-the JAX package does, so both packages build the same scene.
+Counterpart of fusionsense_tpu/data/synthetic.py. The sphere geometry is
+computed with numpy in float64 and cast to float32, exactly as the JAX
+package does, so both packages build the same scene. The blob and hard
+objects are implicit surfaces evaluated in float32 torch on the camera's
+(or the caller's) device; their normals are the implicit function's
+gradient by autograd, where JAX takes jax.grad.
 """
 from __future__ import annotations
 
@@ -127,3 +131,246 @@ def sphere_touch_patches(n_patches=4, pts_per_patch=400, radius=0.5,
             normals=dirs.astype(np.float32), bbox_center=center,
             bbox_rot=R, bbox_extent=ext))
     return patches
+
+
+# ---------------------------------------------------------------- blob ----
+#
+# A star-convex "bunny-class" test object: smooth radial perturbation of a
+# sphere with genus-0 bumps and dents, exact autodiff normals.
+
+def _blob_radius(u: torch.Tensor, base: float = 0.4) -> torch.Tensor:
+    """(..., 3) unit directions -> (...,) radius of the blob surface."""
+    x, y, z = u[..., 0], u[..., 1], u[..., 2]
+    bump = (0.16 * torch.sin(3.0 * x + 1.0) * torch.sin(2.0 * y)
+            + 0.12 * (x * x - y * y) * z
+            + 0.10 * torch.sin(4.0 * z)
+            + 0.08 * x * y)
+    return base * (1.0 + bump)
+
+
+def _blob_implicit(p: torch.Tensor, base: float = 0.4) -> torch.Tensor:
+    r = torch.linalg.norm(p, dim=-1)
+    u = p / torch.clamp_min(r, 1e-9)[..., None]
+    return r - _blob_radius(u, base)
+
+
+def _implicit_grad(implicit, pts: torch.Tensor) -> torch.Tensor:
+    """Per-point gradient of a pointwise implicit function."""
+    with torch.enable_grad():
+        p = pts.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(implicit(p).sum(), p)
+    return g
+
+
+def _fib_dirs(n: int, dev) -> torch.Tensor:
+    i = np.arange(n, dtype=np.float64)
+    phi = math.pi * (3.0 - math.sqrt(5.0))
+    yy = 1 - 2 * (i + 0.5) / n
+    rr = np.sqrt(np.maximum(1 - yy * yy, 0))
+    th = phi * i
+    u = np.stack([rr * np.cos(th), rr * np.sin(th), yy], -1)
+    return torch.as_tensor(u.astype(np.float32), device=dev)
+
+
+def _texture(p: torch.Tensor) -> torch.Tensor:
+    """The procedural albedo shared by geometry samples and shading."""
+    c = 0.5 + 0.45 * torch.stack(
+        [torch.sin(7 * p[..., 0] + 1), torch.sin(9 * p[..., 1] * p[..., 2]),
+         torch.sin(8 * p[..., 2] + 2)], -1)
+    return torch.clamp(c, 0, 1)
+
+
+def blob_points(n: int = 4000, base: float = 0.4, seed: int = 0, device=None):
+    """Surface samples of the blob: (points, colors, normals); normals are
+    the exact implicit-function gradient. (`seed` is accepted for signature
+    parity; the points are deterministic.)"""
+    u = _fib_dirs(n, resolve_device(device))
+    pts = u * _blob_radius(u, base)[..., None]
+    grad = _implicit_grad(lambda p: _blob_implicit(p, base), pts)
+    normals = grad / torch.linalg.norm(grad, dim=-1, keepdim=True)
+    return pts, _texture(pts), normals
+
+
+def _pixel_rays(camera: Camera):
+    """Unit world directions (H, W, 3) through the pixel centres."""
+    H, W = camera.height, camera.width
+    dev = camera.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
+    xs = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    dirs_cam = torch.stack([(gx - camera.cx) / camera.fx,
+                            (gy - camera.cy) / camera.fy,
+                            torch.ones_like(gx)], -1)
+    dirs = dirs_cam @ camera.camtoworld[:3, :3].T
+    return dirs, dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+
+
+def _linspace(t0: torch.Tensor, t1: torch.Tensor, n: int) -> torch.Tensor:
+    """n samples from t0 to t1 by the JAX package's rule: t0 (1 - s) + t1 s
+    with s = i / (n - 1), the last sample exactly t1."""
+    s = torch.arange(n - 1, dtype=torch.float32, device=t0.device) / (n - 1)
+    return torch.cat([t0 * (1 - s) + t1 * s, t1.reshape(1)])
+
+
+def _first_crossing(origin, dn, implicit, ts, rounds: int):
+    """First outside -> inside crossing along each ray over the samples ts,
+    refined by `rounds` bisections. Returns (t, hit)."""
+    vals = torch.stack([implicit(origin + t * dn) for t in ts])
+    outside = vals > 0                                   # (S, H, W)
+    cross = outside[:-1] & ~outside[1:]
+    any_hit = torch.any(cross, dim=0)
+    first = torch.argmax(cross.to(torch.int8), dim=0)
+    ta, tb = ts[first], ts[first + 1]
+    for _ in range(rounds):
+        tm = 0.5 * (ta + tb)
+        go_lo = implicit(origin + tm[..., None] * dn) > 0
+        ta = torch.where(go_lo, tm, ta)
+        tb = torch.where(go_lo, tb, tm)
+    return 0.5 * (ta + tb), any_hit
+
+
+def _hit_outputs(camera: Camera, implicit, origin, dn, t):
+    pts = origin + t[..., None] * dn
+    H, W = camera.height, camera.width
+    grad = _implicit_grad(implicit, pts.reshape(-1, 3)).reshape(H, W, 3)
+    normal = grad / torch.clamp_min(
+        torch.linalg.norm(grad, dim=-1, keepdim=True), 1e-9)
+    z = (pts @ camera.viewmat[:3, :3].T + camera.viewmat[:3, 3])[..., 2]
+    return pts, normal, z
+
+
+def blob_depth_normals(camera: Camera, base: float = 0.4, n_steps: int = 48):
+    """Ray-marched z-depth + exact world normals + mask of the blob for ONE
+    camera (bracketed around the bounding spheres, 10 bisections)."""
+    origin = camera.origin
+    _, dn = _pixel_rays(camera)
+    oc = torch.linalg.norm(origin)
+    ts = _linspace(torch.clamp_min(oc - 1.6 * base, 1e-3), oc + 1.6 * base,
+                   n_steps)
+    implicit = lambda p: _blob_implicit(p, base)  # noqa: E731
+    t, any_hit = _first_crossing(origin, dn, implicit, ts, 10)
+    _, normal, z = _hit_outputs(camera, implicit, origin, dn, t)
+    depth = torch.where(any_hit, z, torch.zeros_like(z))
+    normal = torch.where(any_hit[..., None], normal, torch.zeros_like(normal))
+    return depth, normal, any_hit.to(torch.float32)
+
+
+# --------------------------------------------------------------------------
+# "hard" capture: non-convex geometry + specular shading + clutter
+
+_HANDLE_C = (0.0, 0.47, 0.0)     # torus handle center (+y side)
+_HANDLE_R, _HANDLE_r = 0.16, 0.05
+_DENT_C = (-0.44, 0.0, 0.0)      # concave dent (-x side)
+_DENT_R = 0.13
+
+
+def _hard_implicit(p: torch.Tensor, base: float = 0.4) -> torch.Tensor:
+    """Blob with a torus handle, minus a spherical dent: non-convex (a hole
+    through the handle, a cavity at -x), not star-convex."""
+    b = _blob_implicit(p, base)
+    q = p - torch.tensor(_HANDLE_C, dtype=p.dtype, device=p.device)
+    ring = torch.sqrt(q[..., 0] ** 2 + q[..., 1] ** 2) - _HANDLE_R
+    torus = torch.sqrt(ring ** 2 + q[..., 2] ** 2) - _HANDLE_r
+    dent = _DENT_R - torch.linalg.norm(
+        p - torch.tensor(_DENT_C, dtype=p.dtype, device=p.device), dim=-1)
+    return torch.maximum(torch.minimum(b, torus), dent)
+
+
+def _march_implicit(camera: Camera, implicit, t_lo, t_hi, n_steps: int):
+    """First-crossing ray march + 12 bisections against any implicit.
+    Returns (pts (H, W, 3), normal, z-depth, hit-mask)."""
+    origin = camera.origin
+    _, dn = _pixel_rays(camera)
+    t, any_hit = _first_crossing(origin, dn, implicit,
+                                 _linspace(t_lo, t_hi, n_steps), 12)
+    pts, normal, z = _hit_outputs(camera, implicit, origin, dn, t)
+    return pts, normal, torch.where(any_hit, z, torch.zeros_like(z)), any_hit
+
+
+def _hard_bracket(camera: Camera, base: float):
+    oc = torch.linalg.norm(camera.origin)
+    return torch.clamp_min(oc - 1.9 * base, 1e-3), oc + 1.9 * base
+
+
+def hard_depth_normals(camera: Camera, base: float = 0.4, n_steps: int = 96):
+    """Ray-marched depth/normal/mask of the hard (non-convex) object."""
+    _, normal, depth, hit = _march_implicit(
+        camera, lambda p: _hard_implicit(p, base), *_hard_bracket(camera, base),
+        n_steps)
+    return (depth, torch.where(hit[..., None], normal, torch.zeros_like(normal)),
+            hit.to(torch.float32))
+
+
+def hard_points(n: int = 6000, base: float = 0.4, seed: int = 0, device=None):
+    """Surface samples of the hard object: candidate soup (blob shell +
+    torus shell + dent shell) Newton-projected onto the union surface."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    b_pts, _, _ = blob_points(n=n, base=base, seed=seed, device=dev)
+    th = rng.rand(n // 3) * 2 * np.pi
+    ph = rng.rand(n // 3) * 2 * np.pi
+    ring = _HANDLE_R + _HANDLE_r * np.cos(ph)
+    t_pts = np.stack([ring * np.cos(th), ring * np.sin(th),
+                      _HANDLE_r * np.sin(ph)], -1) + np.asarray(_HANDLE_C)
+    u = rng.randn(n // 3, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    d_pts = np.asarray(_DENT_C) + u * _DENT_R
+    cand = torch.cat([b_pts, torch.as_tensor(
+        np.concatenate([t_pts, d_pts]).astype(np.float32), device=dev)])
+
+    f = lambda p: _hard_implicit(p, base)  # noqa: E731
+    for _ in range(12):                       # Newton projection onto f = 0
+        v = f(cand)
+        g = _implicit_grad(f, cand)
+        cand = cand - g * (v / torch.clamp_min(torch.sum(g * g, -1), 1e-9)
+                           )[:, None]
+    pts = cand[torch.abs(f(cand)) < 1e-4]
+    g = _implicit_grad(f, pts)
+    normals = g / torch.linalg.norm(g, dim=-1, keepdim=True)
+    return pts, _texture(pts), normals
+
+
+_LIGHT = (1.5, 1.0, 2.2)
+
+
+def shade_hard_view(camera: Camera, base: float = 0.4,
+                    spec_strength: float = 0.6, shininess: float = 40.0,
+                    wall_radius: float = 2.6):
+    """Shaded capture of the hard object for ONE camera: textured diffuse +
+    a strong Blinn-Phong specular lobe (point light) over a checkered
+    cylinder wall. Returns (rgb, depth_with_background, object_mask)."""
+    origin = camera.origin
+    dev = camera.device
+    pts, normal, z_obj, hit = _march_implicit(
+        camera, lambda p: _hard_implicit(p, base),
+        *_hard_bracket(camera, base), 96)
+
+    unit = lambda v: v / torch.linalg.norm(v, dim=-1, keepdim=True)  # noqa: E731
+    light = torch.tensor(_LIGHT, dtype=torch.float32, device=dev)
+    l_dir = unit(light - pts)
+    v = unit(origin - pts)
+    h = l_dir + v
+    h = h / torch.clamp_min(torch.linalg.norm(h, dim=-1, keepdim=True), 1e-9)
+    lam = torch.clamp_min(torch.sum(normal * l_dir, -1), 0.0)
+    spec = spec_strength * torch.clamp_min(torch.sum(normal * h, -1),
+                                           0.0) ** shininess
+    rgb_obj = torch.clamp(
+        _texture(pts) * (0.25 + 0.75 * lam)[..., None] + spec[..., None], 0, 1)
+
+    dirs, _ = _pixel_rays(camera)
+    a = dirs[..., 0] ** 2 + dirs[..., 1] ** 2
+    bq = 2 * (origin[0] * dirs[..., 0] + origin[1] * dirs[..., 1])
+    cq = origin[0] ** 2 + origin[1] ** 2 - wall_radius ** 2
+    disc = torch.clamp_min(bq ** 2 - 4 * a * cq, 0.0)
+    t_wall = (-bq + torch.sqrt(disc)) / torch.clamp_min(2 * a, 1e-9)
+    p_wall = origin + t_wall[..., None] * dirs
+    check = torch.remainder(
+        torch.floor(p_wall[..., 2] * 4)
+        + torch.floor(torch.atan2(p_wall[..., 1], p_wall[..., 0]) * 5), 2)
+    rgb_bg = torch.stack([0.25 + 0.45 * check, 0.35 - 0.1 * check,
+                          0.30 + 0.25 * check], -1)
+    z_wall = (p_wall @ camera.viewmat[:3, :3].T + camera.viewmat[:3, 3])[..., 2]
+
+    rgb = torch.where(hit[..., None], rgb_obj, rgb_bg)
+    depth = torch.where(hit, z_obj, z_wall)    # the sensor sees the wall too
+    return rgb, depth, hit.to(torch.float32)

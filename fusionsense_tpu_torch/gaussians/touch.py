@@ -123,20 +123,40 @@ def touch_prune(state: GaussianState, boxes: TouchBoxes) -> GaussianState:
     return state.replace(alive=state.alive & ~intruder)
 
 
+_BLOCK = 1 << 26     # (candidate, hull) distances per block in hull_prune
+
+
 def hull_prune(state: GaussianState, hull_points: torch.Tensor, *,
                scene_scale: float = 1.0, inner: float = 0.005,
                outer: float = 0.02,
                center_radius_factor: float = 0.2) -> GaussianState:
     """Visual-hull shell pruning: Gaussians near the hull centre whose
     distance to the nearest hull point falls in (inner, outer] * scale hover
-    just off the object surface; cull them."""
+    just off the object surface; cull them. Only the candidates (alive, not
+    frozen, near the centre) can be culled, so only their distances are
+    computed, in blocks of about _BLOCK (candidate, hull) entries: a hull
+    carved at full size holds millions of voxels. Finding the candidates
+    reads their count on the host."""
     center = torch.mean(hull_points, dim=0)
     near_center = torch.linalg.norm(state.means - center, dim=-1) < (
         center_radius_factor * scene_scale)
-    d2 = (torch.sum(state.means ** 2, -1)[:, None]
-          - 2 * state.means @ hull_points.T
-          + torch.sum(hull_points ** 2, -1)[None, :])
-    dmin = torch.sqrt(torch.clamp_min(torch.amin(d2, dim=-1), 0.0))
+    idx = torch.nonzero(near_center & state.alive & ~state.frozen)[:, 0]
+    means = state.means[idx]
+    sq_m = torch.sum(means ** 2, -1)
+    sq_h = torch.sum(hull_points ** 2, -1)
+    M = hull_points.shape[0]
+    cols = max(1, min(M, _BLOCK // 1024))
+    rows = max(1, _BLOCK // cols)
+    d2min = [torch.zeros((0,), device=means.device)]
+    for r in range(0, means.shape[0], rows):
+        m = means[r:r + rows]
+        best = torch.full((m.shape[0],), float("inf"), device=m.device)
+        for c in range(0, M, cols):
+            d2 = (sq_m[r:r + rows, None] - 2 * m @ hull_points[c:c + cols].T
+                  + sq_h[None, c:c + cols])
+            best = torch.minimum(best, torch.amin(d2, dim=-1))
+        d2min.append(best)
+    dmin = torch.sqrt(torch.clamp_min(torch.cat(d2min), 0.0))
     shell = (dmin > inner * scene_scale) & (dmin <= outer * scene_scale)
-    cull = near_center & shell & state.alive & ~state.frozen
+    cull = torch.zeros_like(state.alive).index_fill_(0, idx[shell], True)
     return state.replace(alive=state.alive & ~cull)

@@ -184,8 +184,10 @@ def _prepare(means, quats, scales, opacities, colors, camera, cfg, normals,
     cam_origin = camera.origin
     if colors.ndim == 3:
         viewdir = normalize(means - cam_origin)
-        rgb_g = torch.clamp_min(eval_sh(colors, viewdir, cfg.sh_degree) + 0.5,
-                                0.0)
+        # maximum, not clamp_min: a colour exactly at 0 (a black seed point)
+        # passes half the gradient, as jnp.clip does at the tie
+        rgb = eval_sh(colors, viewdir, cfg.sh_degree) + 0.5
+        rgb_g = torch.maximum(rgb, torch.zeros_like(rgb))
     else:
         rgb_g = colors
     if normals is None:

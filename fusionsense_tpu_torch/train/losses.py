@@ -184,8 +184,10 @@ def normals_from_depth(depth: torch.Tensor, camera) -> torch.Tensor:
 # ------------------------------------------------------- regularizers ------
 
 def flatness_loss(log_scales: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
-    """Mean over alive of min(exp(scales)): encourages flat discs."""
-    min_scale = torch.min(torch.exp(log_scales), dim=-1).values
+    """Mean over alive of min(exp(scales)): encourages flat discs. amin
+    shares the gradient among tied axes (an isotropic init), as jnp.min
+    does."""
+    min_scale = torch.amin(torch.exp(log_scales), dim=-1)
     return (torch.sum(torch.where(alive, min_scale, torch.zeros_like(min_scale)))
             / torch.clamp_min(torch.sum(alive), 1))
 

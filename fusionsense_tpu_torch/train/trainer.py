@@ -17,9 +17,12 @@ render-prefix, K / pair-budget and cover-window policies. Camera
 optimisation (per-view SE3 deltas under an accumulating Adam) and the SDF
 loss are options of the step.
 
-Not ported yet (each raises or is absent): make_fused_intervals / run_fused
-/ sync_policies (ROADMAP N2) and the debug image dumps (`image_log_dir`,
-which need eval.make_render_fn, A14).
+With `image_log_dir` set, every log boundary also writes a GT | rgb | depth
+| normal strip of the step's view as a PNG (eval.make_render_fn,
+data/image_io.py).
+
+Not ported yet (each raises): make_fused_intervals / run_fused /
+sync_policies (ROADMAP N2).
 """
 from __future__ import annotations
 
@@ -406,7 +409,8 @@ class Trainer:
         self.step = 0
         self.extra_callbacks = extra_callbacks or []
         self.checkpoint_dir = None   # a path enables the periodic saves
-        self.image_log_dir = None    # debug image dumps: not ported (A14)
+        self.image_log_dir = None    # a path enables the debug image dumps
+        self._debug_render = None
         z6 = torch.zeros((self.num_views, 6), device=self.device)
         self.cam_state = (z6, init_adam({"cam_delta": z6}))  # pose deltas
         self.max_capacity = gaussians.capacity
@@ -549,10 +553,6 @@ class Trainer:
 
     def run(self, iterations: Optional[int] = None, log=print):
         cfg = self.cfg
-        if self.image_log_dir is not None:
-            raise NotImplementedError(
-                "image_log_dir needs eval.make_render_fn, not ported (ROADMAP "
-                "A14)")
         total = iterations if iterations is not None else cfg.train.iterations
         adc = cfg.train.adc
         refresh = cfg.train.bin_refresh_steps
@@ -585,6 +585,9 @@ class Trainer:
             self._nf_acc = nf_c if self._nf_acc is None else self._nf_acc + nf_c
 
             self.refine_boundary()
+            if (self.image_log_dir is not None
+                    and self.step % cfg.train.log_every == 0):
+                self._dump_debug_grid()
             if (self.checkpoint_dir is not None
                     and self.step % cfg.train.steps_per_save == 0):
                 self.save(f"{self.checkpoint_dir}/ckpt_{self.step}")
@@ -631,3 +634,27 @@ class Trainer:
                     log(f"step {rec['step']:6d}  loss {rec['loss']:.4f}  "
                         f"psnr {rec['psnr']:.2f}  n {rec['num_gaussians']}")
         return self.history
+
+    def _dump_debug_grid(self):
+        """GT | rgb | depth | normal strip of this step's view, written as
+        image_log_dir/step_<step>.png (depth min-max normalised, normals
+        mapped from [-1, 1])."""
+        from pathlib import Path
+
+        from fusionsense_tpu_torch.data.image_io import write_png
+        from fusionsense_tpu_torch.eval.evaluator import make_render_fn
+
+        if self._debug_render is None:
+            self._debug_render = make_render_fn(self.cfg.model.rasterize,
+                                                self.camera)
+        i = self.step % self.num_views
+        out = self._debug_render(self.gaussians, i)
+        d = out.depth
+        d = (d - d.min()) / torch.clamp_min(d.max() - d.min(), 1e-8)
+        grid = torch.cat([self.data.images[i], torch.clamp(out.rgb, 0, 1),
+                          torch.stack([d] * 3, -1),
+                          torch.clamp(out.normal * 0.5 + 0.5, 0, 1)], dim=1)
+        path = Path(self.image_log_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        write_png(path / f"step_{self.step:06d}.png",
+                  (grid * 255).cpu().numpy().astype("uint8"))

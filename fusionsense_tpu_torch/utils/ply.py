@@ -202,7 +202,7 @@ def read_pcd(path) -> dict:
         mode = header["DATA"][0]
         if mode == "ascii":
             rows = [f.readline().split() for _ in range(n)]
-            data = np.array(rows, np.float64)
+            data = np.array(rows, np.float64).reshape(n, len(fields))
             rec = np.empty(n, dtype)
             for i, fld in enumerate(fields):
                 rec[fld] = data[:, i]

@@ -117,7 +117,7 @@ def test_prune_and_boxes_match_jax():
     np.testing.assert_array_equal(pt_out.frozen.numpy(), st.frozen.numpy())
 
 
-def test_hull_prune_matches_jax():
+def test_hull_prune_matches_jax(monkeypatch):
     hull = np.asarray(SYNJ.sphere_points(n=4000, radius=0.1)[0])
     rng = np.random.RandomState(2)
     d = rng.normal(size=(200, 3))
@@ -130,6 +130,11 @@ def test_hull_prune_matches_jax():
     ot = TT.hull_prune(convert.state_from_numpy(_np(s), "cpu"),
                        torch.tensor(hull), scene_scale=1.0)
     np.testing.assert_array_equal(ot.alive.numpy(), np.asarray(oj.alive))
+    # the candidates' distances in many (candidate, hull) blocks
+    monkeypatch.setattr(TT, "_BLOCK", 1 << 12)
+    small = TT.hull_prune(convert.state_from_numpy(_np(s), "cpu"),
+                          torch.tensor(hull), scene_scale=1.0)
+    np.testing.assert_array_equal(small.alive.numpy(), np.asarray(oj.alive))
     culled = np.asarray(s.alive) & ~ot.alive.numpy()
     assert 0 < culled.sum() < 190 and not culled[:10].any()
 

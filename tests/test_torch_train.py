@@ -564,7 +564,4 @@ def test_off_slice_options_raise(fixture):
     for fn in (lambda: tr.run_fused(2), tr.sync_policies):
         with pytest.raises(NotImplementedError, match="N2"):
             fn()
-    tr.image_log_dir = "images"
-    with pytest.raises(NotImplementedError, match="A14"):
-        tr.run(iterations=4, log=None)
     assert tr.step == 0
