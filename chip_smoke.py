@@ -69,10 +69,23 @@ Phases (any failure exits non-zero and prints no result):
     resumed run must enter at step 300 with the patch frozen, and its
     high-grad export (from the settled population) must find points whose
     clusters and ranks read back; then K3/K4 against their plain versions
-    on the first run's trained state;
-11. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
-    fusionsense path's post-refine shape, their launches the dense,
-    fusionsense and pipeline paths' together, their errors the largest of
+    on the first run's trained state, and timed there;
+11. fused refine intervals (Trainer.run_fused, CUDA graph replays of the
+    step) on the bench scene, for the flat configuration and for the dense
+    one (dn_splatter, pallas): refines every 50 steps from step 100 and the
+    adaptive policies held still; eager Trainer.run to step 200, then from
+    a copy of that trainer (a) Trainer.run and (b) run_fused(4, 50) +
+    sync_policies to step 400: n_alive and the alive masks equal, means
+    within rtol 1e-4 / atol 1e-5, last PSNR within 0.05; the graphs, their
+    capture seconds and pool; K1/K2 (K3/K4) launched once per step inside
+    the replays, their plain twins never; one more interval with
+    torch.cuda.set_sync_debug_mode("error") (no host sync, refine
+    included); ms/step over two timed windows beside the eager step; a
+    profiled interval: device kernels, host launch calls and busy share
+    per step;
+12. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+    fusionsense path's post-refine shape; launches those of every path
+    that runs the kernel, graph replays included; errors the largest of
     every check), the card line, and last the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -124,6 +137,12 @@ PIPE_ITERS, PIPE_WARMUP, PIPE_STOP_SPLIT = 600, 100, 600
 PIPE_TOUCH_AT, PIPE_SAVE, PIPE_RESUME_ITERS = 150, 300, 360
 PIPE_METRICS = ("psnr", "masked_psnr", "ssim", "depth_abs_rel", "normal_mae",
                 "fps", "num_gaussians")
+# the fused phase: refines every 50 from step 100, eager to FUSED_FROM, then
+# FUSED_INTERVALS intervals of 50 both ways; windows of 2 and 3 x 2 intervals
+FUSED_ADC = dict(warmup=100, refine_every=50)
+FUSED_FROM, FUSED_INTERVALS, FUSED_WINDOW = 200, 4, 2
+TOL_FUSED = dict(rtol=1e-4, atol=1e-5)   # tests/test_train_e2e.py:289's
+TOL_FUSED_PSNR = 0.05
 
 
 def log(msg):
@@ -731,6 +750,127 @@ def train_path(torch, tr, name, counters, kernels):
     return launches, ms_step, timed_shape
 
 
+def fused_config(cfg):
+    """cfg with FUSED_ADC and its adaptive policies held still: run_fused,
+    like the JAX package's fused path, runs none of them, so Trainer.run is
+    held against it with them off (as tests/test_train_e2e.py:289 does)."""
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, auto_capacity=False, auto_tile_capacity=False,
+        auto_cover_window=False,
+        adc=dataclasses.replace(cfg.train.adc, **FUSED_ADC)))
+
+
+def fused_path(torch, name, cfg, cams, data, init, dev, counters, kernels):
+    """run_fused against Trainer.run on one configuration (phase 11): train
+    eagerly to FUSED_FROM, copy the trainer, then (a) Trainer.run and (b)
+    run_fused + sync_policies for FUSED_INTERVALS intervals of 50, refines
+    at every interval end; n_alive and the alive masks equal, means within
+    TOL_FUSED, last PSNR within TOL_FUSED_PSNR. (b) runs with the launch
+    counters zeroed just before and read just after: `kernels` must launch
+    once per step (graph replays counted by train/graphs.py), their plain
+    twins never. Then one more interval under
+    torch.cuda.set_sync_debug_mode("error") (refine included), two timed
+    windows and one profiled interval. Returns the launches of (b)."""
+    from fusionsense_tpu_torch.train import graphs as G
+    from fusionsense_tpu_torch.train.trainer import Trainer, map_train_state
+    from fusionsense_tpu_torch.utils import profiling
+
+    cfg = fused_config(cfg)
+    tr_a = Trainer(cfg, cams, data, init, device=dev)
+    tr_a.run(iterations=FUSED_FROM, log=None)
+    tr_b = Trainer(cfg, cams, data, init, device=dev)
+    (tr_b.gaussians, tr_b.opt, tr_b.cam_state,
+     tr_b.stats) = map_train_state(tr_a.gaussians, tr_a.opt, tr_a.cam_state,
+                                   tr_a.stats, torch.clone)
+    for k in ("step", "render_n", "tile_capacity", "cover_tiles"):
+        setattr(tr_b, k, getattr(tr_a, k))
+    steps = 50 * FUSED_INTERVALS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr_a.run(iterations=FUSED_FROM + steps, log=None)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    for c in counters:
+        c.reset_launch_counts()
+    G.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ms = tr_b.run_fused(FUSED_INTERVALS, interval=50, block=True)
+    first_s = time.perf_counter() - t0
+    n_b = tr_b.sync_policies(ms)
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    for k, v in G.REPLAYED.items():
+        launches[k] += v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = tr_b.graph_stats()
+    pool = G.pool_bytes(tr_b._graph_pool)
+    n_a = int(tr_a.gaussians.num_alive)
+    same_alive = bool(torch.equal(tr_a.gaussians.alive, tr_b.gaussians.alive))
+    means_err = float((tr_a.gaussians.means - tr_b.gaussians.means).abs().max())
+    means_ok = bool(torch.allclose(tr_b.gaussians.means, tr_a.gaussians.means,
+                                   **TOL_FUSED))
+    psnr_a, psnr_b = tr_a.history[-1]["psnr"], tr_b.history[-1]["psnr"]
+    log(f"{name} fused: steps {FUSED_FROM}-{tr_b.step} in {FUSED_INTERVALS} "
+        f"intervals of 50 ({first_s:.2f} s with the captures); "
+        f"{stats['graphs']} graphs captured in {stats['capture_s']:.2f} s, "
+        f"graph pool {pool[1] / 1e6:.1f} MB reserved, {pool[0]} B allocated "
+        f"after capture; peak {peak_gb:.3f} GB; n_alive eager {n_a} fused "
+        f"{n_b}; alive masks equal {same_alive}; means max |diff| "
+        f"{means_err:.3e}; last PSNR eager {psnr_a:.4f} fused {psnr_b:.4f}; "
+        f"rows {[{k: v.tolist() for k, v in ms.items()}]}; launches "
+        f"{launches}")
+    if not (n_a == n_b and same_alive and means_ok
+            and abs(psnr_a - psnr_b) <= TOL_FUSED_PSNR):
+        raise RuntimeError(f"{name}: run_fused disagrees with Trainer.run")
+    if any(launches[k] < steps for k in kernels):
+        raise RuntimeError(f"{name} fused: the path missed a kernel: "
+                           f"{launches}")
+    if any(launches[f"{k}_plain"] for k in kernels):
+        raise RuntimeError(f"{name} fused: the path ran a plain version: "
+                           f"{launches}")
+    del tr_a
+
+    # no host sync in a fused interval, its refine and compaction included
+    # (after one interval that captures the graphs of the policies' new key)
+    tr_b.run_fused(1, interval=50)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr_b.run_fused(1, interval=50)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    def window(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr_b.run_fused(FUSED_WINDOW, interval=50)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    t_a, t_b = window(1), window(3)
+    ms_step = (t_b - t_a) * 1e3 / (2 * FUSED_WINDOW * 50)
+    with profiling.trace() as prof:
+        t0 = time.perf_counter()
+        tr_b.run_fused(1, interval=50)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, kernels_n, rows = profiling.device_time(prof)
+    calls = profiling.host_calls(prof)
+    log(f"{name} fused timed: {ms_step:.3f} ms/step (windows of "
+        f"{FUSED_WINDOW * 50} and {3 * FUSED_WINDOW * 50} steps: {t_a:.3f} s, "
+        f"{t_b:.3f} s; slope), eager {eager_ms:.3f} ms/step (Trainer.run "
+        f"above, {steps} steps); one profiled interval: {wall_ms / 50:.3f} "
+        f"ms/step, device kernels {busy_ms / 50:.3f} ms/step in "
+        f"{kernels_n / 50:.0f} kernels/step, {calls / 50:.1f} host launch "
+        f"calls/step, device busy {100 * busy_ms / wall_ms:.1f}% of it")
+    for e in rows[:8]:
+        log(f"  {e.self_device_time_total / 1e3 / 50:8.3f} ms/step  "
+            f"{e.count / 50:6.1f}/step  {e.key[:80]}")
+    return launches
+
+
 def fusionsense_config():
     """The fusionsense preset with backend="pallas" at the bench's capacity,
     scaled to FS_STEPS (FS_ADC, touch at FS_TOUCH_AT, margin FS_MARGIN)."""
@@ -1092,11 +1232,12 @@ def pipeline_path(torch, dev, counters, card):
         for owner, name, fn in reversed(saved):
             setattr(owner, name, fn)
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
-    # K3/K4 against their plain versions at the shape this trainer gave them
+    # K3/K4 against their plain versions at the shape this trainer gave them,
+    # and timed there
     log(f"pipeline: K3/K4 on the first run's state at step "
         f"{pipe.trainer.step} ({int(pipe.trainer.gaussians.num_alive)} alive)")
     errs, _ = check_dense_kernels(torch, pipe.trainer, pipe.trainer.tile_capacity,
-                                  pipe.trainer.cover_tiles, timed=False)
+                                  pipe.trainer.cover_tiles, timed=True)
 
     res = json.loads((out / "metrics.json").read_text())
     grids = sorted((out / "log_images").glob("step_*.png"))
@@ -1211,6 +1352,8 @@ def main():
     init_dense = init.replace(**{k: v.clone() for k, v in init.fields().items()})
     init_fs = init.replace(**{k: v.clone() for k, v in init.fields().items()})
     init_jax = init.replace(**{k: v.clone() for k, v in init.fields().items()})
+    init_fused = [init.replace(**{k: v.clone() for k, v in init.fields().items()})
+                  for _ in range(2)]
     tr = Trainer(cfg, cams, data, init, device=dev)
     torch.cuda.synchronize()
     log(f"scene: {time.perf_counter() - t0:.1f} s (GT budget {gt_budget}); "
@@ -1261,13 +1404,21 @@ def main():
 
     # 10. fs-train end to end from a capture on disk, through K3/K4
     pipe_launches, pipe_errs = pipeline_path(torch, dev, (FC, C2), card)
+    # 11. fused refine intervals as CUDA graph replays, flat and dense
+    fused_flat = fused_path(torch, "flat", cfg, cams, data, init_fused[0],
+                            dev, (FC, C2), flat_names)
+    fused_dense = fused_path(torch, "dense", dense_config(), cams, data,
+                             init_fused[1], dev, (FC, C2), dense_names)
+    for k, key in zip(kernels, ("fwd", "bwd")):
+        k["launches"] += fused_flat[f"flat_composite_{key}"]
     for k, d, key in zip(fs_kernels, dense_kernels, ("fwd", "bwd")):
         k["launches"] = (d["launches"] + fs_launches[f"composite2_{key}"]
-                         + pipe_launches[f"composite2_{key}"])
+                         + pipe_launches[f"composite2_{key}"]
+                         + fused_dense[f"composite2_{key}"])
         k["max_abs_err"] = max(k["max_abs_err"], d["max_abs_err"],
                                pipe_errs[key])
 
-    # 11. results
+    # 12. results
     print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,12 @@ import torch
 from fusionsense_tpu_torch.device import resolve_device
 
 
+def pick(x: torch.Tensor, i) -> torch.Tensor:
+    """x[i] for an int i, or for a (1,) int64 index tensor on x's device,
+    read there: a CUDA graph of the step can take the view as an input."""
+    return x[i] if isinstance(i, int) else x.index_select(0, i)[0]
+
+
 @dataclasses.dataclass
 class Camera:
     viewmat: torch.Tensor   # (..., 4, 4) world-to-camera (OpenCV)
@@ -28,7 +34,8 @@ class Camera:
 
     @property
     def camtoworld(self) -> torch.Tensor:
-        return torch.linalg.inv(self.viewmat)
+        # inv_ex: the numbers of inv, without its error check's host sync
+        return torch.linalg.inv_ex(self.viewmat).inverse
 
     @property
     def origin(self) -> torch.Tensor:
@@ -38,10 +45,11 @@ class Camera:
         return -torch.einsum("...ji,...j->...i", R, t)
 
     def index(self, i) -> "Camera":
-        """Camera i of a batched Camera."""
-        return Camera(viewmat=self.viewmat[i], fx=self.fx[i], fy=self.fy[i],
-                      cx=self.cx[i], cy=self.cy[i],
-                      width=self.width, height=self.height)
+        """Camera i of a batched Camera (i as `pick` takes it)."""
+        return Camera(viewmat=pick(self.viewmat, i), fx=pick(self.fx, i),
+                      fy=pick(self.fy, i), cx=pick(self.cx, i),
+                      cy=pick(self.cy, i), width=self.width,
+                      height=self.height)
 
     def replace(self, **kw) -> "Camera":
         return dataclasses.replace(self, **kw)

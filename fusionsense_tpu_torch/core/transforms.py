@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from fusionsense_tpu_torch.device import resolve_device
+from fusionsense_tpu_torch.device import device_vector, resolve_device
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -97,8 +97,8 @@ def apply_se3_delta(viewmat: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     tv = viewmat[..., :3, 3]
     top = torch.cat(
         [R @ Rv, (torch.einsum("...ij,...j->...i", R, tv) + t)[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=viewmat.dtype,
-                          device=viewmat.device).expand(top.shape[:-2] + (1, 4))
+    bottom = device_vector((0.0, 0.0, 0.0, 1.0), viewmat.device,
+                           viewmat.dtype).expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], -2)
 
 

@@ -26,3 +26,13 @@ def check_on(device: torch.device, **tensors) -> None:
         if t is not None and t.device.type != device.type:
             raise ValueError(
                 f"{name} is on {t.device}, expected {device}")
+
+
+def device_vector(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A short constant vector made by fills on the device. Unlike
+    torch.tensor(values, device=...), it copies nothing from the host, so
+    it makes no host sync and can be captured in a CUDA graph."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out

@@ -76,17 +76,26 @@ def new_state(capacity: int, sh_degree: int = 3, device=None) -> GaussianState:
     )
 
 
-def binary_opacity_surgery(logit_opacities: torch.Tensor, step: int, *,
+def surgery_due(step: int, *, warmup: int, skip: int, margin: int = 200) -> bool:
+    """Whether the binary-opacity surgery applies at `step`."""
+    return step > warmup and (step - warmup) % skip > margin
+
+
+def binary_opacity_surgery(logit_opacities: torch.Tensor, step: int | None, *,
                            threshold: float, warmup: int, skip: int,
-                           margin: int = 200) -> torch.Tensor:
+                           margin: int = 200,
+                           due: torch.Tensor | None = None) -> torch.Tensor:
     """The reference's binary opacities as logit-space param surgery at the
-    top of each step (semantics and phase anchoring as in the JAX store)."""
-    ph = (step - warmup) % skip
-    if not (step > warmup and ph > margin):
+    top of each step (semantics and phase anchoring as in the JAX store).
+    `due`, a 0-d bool device tensor, replaces the host phase test for a
+    step that a CUDA graph replays (`step` None then)."""
+    if due is None and not surgery_due(step, warmup=warmup, skip=skip,
+                                       margin=margin):
         return logit_opacities
-    return torch.where(logit_opacities >= threshold,
-                       torch.ones_like(logit_opacities),
-                       torch.zeros_like(logit_opacities))
+    binary = torch.where(logit_opacities >= threshold,
+                         torch.ones_like(logit_opacities),
+                         torch.zeros_like(logit_opacities))
+    return binary if due is None else torch.where(due, binary, logit_opacities)
 
 
 def activated(state: GaussianState):

@@ -17,7 +17,6 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 DEPTH_BITS = 16
@@ -171,12 +170,13 @@ def flat_bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
         j = torch.arange(EB, **i64)
         r = j - S[g_of]
         live = j < total_live
-        lut = np.zeros((win * win, win + 1), np.int64)
-        for wv in range(1, win + 1):
-            for rv in range(win * win):
-                lut[rv, wv] = (rv // wv) * 8 + (rv % wv)
-        lut_t = torch.as_tensor(lut.reshape(-1), device=dev)
-        packed = lut_t[torch.clamp(r, 0, win * win - 1) * (win + 1) + w_live[g_of]]
+        # window slot r of a w-wide window packed as dy*8+dx (0 where w = 0),
+        # computed on the device: a host table would be a copy from the host
+        rc = torch.clamp(r, 0, win * win - 1)
+        wv = w_live[g_of]
+        ws = torch.clamp_min(wv, 1)
+        packed = torch.where(wv > 0, (rc // ws) * 8 + rc % ws,
+                             torch.zeros_like(rc))
         dy_c = packed >> 3
         dx_c = packed & 7
         local_c = (ty0[g_of] + dy_c) * tiles_x + tx0[g_of] + dx_c - tile_lo

@@ -84,7 +84,10 @@ def composite_tiles(feats: torch.Tensor, tile_coeffs: torch.Tensor,
         args = (feats[s:s + chunk], tile_coeffs[s:s + chunk],
                 tile_channels[s:s + chunk])
         if torch.is_grad_enabled():
-            o, a = checkpoint(_composite_chunk, *args, use_reentrant=False)
+            # the chunk draws nothing random: no RNG state to keep, and
+            # reading it is refused inside a CUDA graph capture
+            o, a = checkpoint(_composite_chunk, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             o, a = _composite_chunk(*args)
         outs.append(o)

@@ -50,10 +50,20 @@ from fusionsense_tpu_torch.render.flat_composite import (
 LAUNCHES = {"composite2_fwd": 0, "composite2_bwd": 0,
             "composite2_fwd_plain": 0, "composite2_bwd_plain": 0}
 
+# launches recorded into a CUDA graph under stream capture: the graph runs
+# them at each of its replays, so train/graphs.py counts them there
+CAPTURED = {"composite2_fwd": 0, "composite2_bwd": 0}
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(key: str) -> None:
+    """One launch of a kernel's stages (one recording, under capture)."""
+    (CAPTURED if torch.cuda.is_current_stream_capturing()
+     else LAUNCHES)[key] += 1
 
 
 def _no_bf16(blend_bf16: bool) -> None:
@@ -321,7 +331,7 @@ def composite2_fwd_cuda(table, counts, tile_ids, tiles_x, tile_size, B=128,
     delta, acc = fwd_chunks_cuda(table, counts, tile_ids, tiles_x, tile_size,
                                  B)
     out, logt, carries, nused = fwd_combine_cuda(delta, acc, counts, B)
-    LAUNCHES["composite2_fwd"] += 1
+    _count("composite2_fwd")
     return out, logt, carries, nused, acc
 
 
@@ -332,7 +342,7 @@ def composite2_bwd_cuda(table, nused, tile_ids, g_out, g_logt, logt, carries,
     S = bwd_suffix_cuda(acc, carries, nused, g_out)
     dtab = bwd_chunks_cuda(table, nused, tile_ids, g_out, g_logt, logt,
                            carries, S, tiles_x, tile_size, B)
-    LAUNCHES["composite2_bwd"] += 1
+    _count("composite2_bwd")
     return dtab
 
 

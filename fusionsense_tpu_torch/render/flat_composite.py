@@ -60,10 +60,20 @@ _CHUNK = 64               # blocks a plain block stage takes at once
 LAUNCHES = {"flat_composite_fwd": 0, "flat_composite_bwd": 0,
             "flat_composite_fwd_plain": 0, "flat_composite_bwd_plain": 0}
 
+# launches recorded into a CUDA graph under stream capture: the graph runs
+# them at each of its replays, so train/graphs.py counts them there
+CAPTURED = {"flat_composite_fwd": 0, "flat_composite_bwd": 0}
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(key: str) -> None:
+    """One launch of a kernel's stages (one recording, under capture)."""
+    (CAPTURED if torch.cuda.is_current_stream_capturing()
+     else LAUNCHES)[key] += 1
 
 
 def _no_bf16(blend_bf16: bool) -> None:
@@ -432,7 +442,7 @@ def flat_composite_fwd_cuda(table, runs, blk_count, num_tiles, tiles_x,
                                     tile_size, B)
     carry, live, logt = fwd_scan_cuda(delta, runs, blk_count)
     out = fwd_combine_cuda(acc, carry, live, runs)
-    LAUNCHES["flat_composite_fwd"] += 1
+    _count("flat_composite_fwd")
     return out, logt, carry, acc, live
 
 
@@ -445,7 +455,7 @@ def flat_composite_bwd_cuda(table, runs, g_out, g_logt, logt, carry, acc,
     S = bwd_suffix_cuda(acc, carry, live, runs, g_out)
     dtab = bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
                            tiles_x, tile_size, B)
-    LAUNCHES["flat_composite_bwd"] += 1
+    _count("flat_composite_bwd")
     return dtab
 
 

@@ -214,7 +214,7 @@ def _gaussian_table(pre: _Prepared, absgrad_tap: Optional[torch.Tensor]):
         cols.append(torch.zeros((N, pad_c), device=dev))
     table_n = torch.cat(cols, dim=-1)
     dead = torch.zeros((table_n.shape[-1],), device=dev)
-    dead[5] = -1e10
+    dead[5].fill_(-1e10)   # a fill, not a copy from the host
     return table_n, dead
 
 
@@ -311,7 +311,7 @@ def _xla_composite(means, quats, scales, opacities, colors, camera, cfg,
     tile_chan = torch.where(m, pre.channels[idx], torch.zeros((), device=m.device))
     coeff = alpha_coefficients(pre.mean2d, proj.conic, pre.op, proj.valid)
     dead = torch.zeros((6,), device=m.device)
-    dead[5] = -1e10
+    dead[5].fill_(-1e10)   # a fill, not a copy from the host
     tile_coeff = torch.where(m, coeff[idx], dead)
     feats = pixel_features(TileGrid(camera.width, camera.height, cfg.tile_size),
                            m.device)

@@ -21,12 +21,14 @@ With `image_log_dir` set, every log boundary also writes a GT | rgb | depth
 | normal strip of the step's view as a PNG (eval.make_render_fn,
 data/image_io.py).
 
-Not ported yet (each raises): make_fused_intervals / run_fused /
-sync_policies (ROADMAP N2).
+run_fused / sync_policies run refine intervals back to back as the JAX
+trainer's fused path does (FusedIntervals); on the card each step is a
+replay of a CUDA graph of the eager step (train/graphs.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Optional
@@ -34,9 +36,9 @@ from typing import Optional
 import torch
 
 from fusionsense_tpu_torch.config import ExperimentConfig
-from fusionsense_tpu_torch.core.cameras import Camera
+from fusionsense_tpu_torch.core.cameras import Camera, pick
 from fusionsense_tpu_torch.core.transforms import apply_se3_delta
-from fusionsense_tpu_torch.device import check_on, resolve_device
+from fusionsense_tpu_torch.device import check_on, device_vector, resolve_device
 from fusionsense_tpu_torch.gaussians.adc import (
     RefineStats, accumulate_stats, init_stats, refine, split_noise,
 )
@@ -44,17 +46,17 @@ from fusionsense_tpu_torch.gaussians.resize import (
     compact_train_state, pick_capacity, render_bucket, resize_train_state,
 )
 from fusionsense_tpu_torch.gaussians.store import (
-    GaussianState, activated, binary_opacity_surgery,
+    GaussianState, activated, binary_opacity_surgery, surgery_due,
 )
 from fusionsense_tpu_torch.render import rasterize as R
 from fusionsense_tpu_torch.render.binning import (
-    auto_expand_budget, flat_bin_gaussians,
+    FlatBins, auto_expand_budget, flat_bin_gaussians,
 )
 from fusionsense_tpu_torch.render.composite import TileGrid
 from fusionsense_tpu_torch.render.project import project_gaussians
 from fusionsense_tpu_torch.train import losses as L
 from fusionsense_tpu_torch.train.optim import (
-    DEFAULT_GROUPS, AdamState, GroupSpec, adam_step, init_adam,
+    DEFAULT_GROUPS, AdamState, GroupSpec, adam_step, group_lr, init_adam,
 )
 from fusionsense_tpu_torch.train.sdf_loss import (
     sample_points_in_gaussians, sdf_loss,
@@ -77,28 +79,105 @@ def check_slice(cfg: ExperimentConfig) -> None:
     R.check_slice(cfg.model.rasterize)
 
 
-def sh_band_mask(sh_degree: int, step: int, interval: int,
-                 device) -> torch.Tensor:
-    """(K,) multiplier activating one SH band per `interval` steps."""
+def sh_active_band(sh_degree: int, step: int, interval: int) -> int:
+    """The highest SH band in use at `step`: one more every `interval`."""
+    return min(step // interval, sh_degree)
+
+
+def sh_band_mask(sh_degree: int, step: Optional[int], interval: int,
+                 device, active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(K,) multiplier activating one SH band per `interval` steps; `active`
+    (0-d float32 on the device) replaces the band the host step gives."""
     k = (sh_degree + 1) ** 2
     bands = torch.floor(torch.sqrt(torch.arange(k, dtype=torch.float32,
                                                 device=device)))
-    active = float(min(step // interval, sh_degree))
+    if active is None:
+        active = float(sh_active_band(sh_degree, step, interval))
     return (bands <= active).to(torch.float32)
 
 
+def camera_group(cfg: ExperimentConfig) -> GroupSpec:
+    """The pose deltas' Adam group: nerfstudio's camera_opt group."""
+    return GroupSpec(cfg.train.camera_opt_lr,
+                     every_k=cfg.train.camera_opt_every_k, eps=1e-8)
+
+
+@dataclasses.dataclass
+class StepInputs:
+    """What the step reads of its host step number, as device values, so
+    that a CUDA graph of the step can be replayed at any step: each Adam
+    group's learning rate and accumulation gate (the pose deltas' group
+    "cam_delta" included), the active SH band, whether the binary-opacity
+    surgery applies, and the generator of the SDF draw (None when the SDF
+    loss is off), which the caller seeds with the step before the step
+    runs."""
+
+    lr: dict                     # group -> 0-d float32
+    gate: dict                   # group -> 0-d bool
+    sh_active: torch.Tensor      # 0-d float32
+    surgery: torch.Tensor        # 0-d bool
+    generator: Optional[torch.Generator] = None
+
+
+class StepSchedule:
+    """The host side of StepInputs: one float32 row per step, with each
+    group's learning rate (as group_lr computes it) and gate, the SH band
+    and the surgery flag, for a table the device indexes by a step
+    counter."""
+
+    def __init__(self, cfg: ExperimentConfig, adam_groups=None):
+        self.cfg = cfg
+        self.groups = dict(adam_groups or DEFAULT_GROUPS)
+        if cfg.train.camera_opt:
+            self.groups["cam_delta"] = camera_group(cfg)
+
+    @property
+    def columns(self) -> int:
+        return 2 * len(self.groups) + 2
+
+    def rows(self, steps) -> torch.Tensor:
+        """(len(steps), columns) float32 on the CPU."""
+        mc, adc = self.cfg.model, self.cfg.train.adc
+        out = []
+        for s in steps:
+            out.append(
+                [group_lr(g, s) for g in self.groups.values()]
+                + [float(g.every_k <= 1 or (s + 1) % g.every_k == 0)
+                   for g in self.groups.values()]
+                + [float(sh_active_band(mc.sh_degree, s,
+                                        mc.sh_degree_interval)),
+                   float(mc.binary_opacities and surgery_due(
+                       s, warmup=adc.warmup,
+                       skip=adc.reset_alpha_every * adc.refine_every,
+                       margin=mc.binary_opacity_margin))])
+        return torch.tensor(out, dtype=torch.float32)
+
+    def inputs(self, row: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> StepInputs:
+        """StepInputs read from a (columns,) row on the device."""
+        G = len(self.groups)
+        return StepInputs(
+            lr={k: row[i] for i, k in enumerate(self.groups)},
+            gate={k: row[G + i] > 0.5 for i, k in enumerate(self.groups)},
+            sh_active=row[2 * G], surgery=row[2 * G + 1] > 0.5,
+            generator=generator)
+
+
 def compute_losses(gaussians: GaussianState, camera: Camera, data: TrainData,
-                   cam_idx: int, step: int, cfg: ExperimentConfig,
+                   cam_idx: int, step: Optional[int], cfg: ExperimentConfig,
                    tap: torch.Tensor, absgrad_tap: Optional[torch.Tensor] = None,
                    render_n: Optional[int] = None, bins=None,
-                   cam_delta: Optional[torch.Tensor] = None):
+                   cam_delta: Optional[torch.Tensor] = None,
+                   inputs: Optional[StepInputs] = None):
     """Forward + composite DN-Splatter loss for one camera. render_n bounds
     the rasterized alive-first prefix; cam_delta (6,) is the view's SE3 pose
-    correction (camera optimisation), applied to its viewmat."""
+    correction (camera optimisation), applied to its viewmat; `inputs`
+    replaces what the host step gives (StepInputs; `step` None then)."""
     mc = cfg.model
     means, quats, scales, op, colors = activated(gaussians)
-    colors = colors * sh_band_mask(mc.sh_degree, step, mc.sh_degree_interval,
-                                   colors.device)[None, :, None]
+    colors = colors * sh_band_mask(
+        mc.sh_degree, step, mc.sh_degree_interval, colors.device,
+        active=None if inputs is None else inputs.sh_active)[None, :, None]
     alive_r = gaussians.alive
     if render_n is not None and render_n < gaussians.capacity:
         means, quats, scales, op, colors = (
@@ -115,20 +194,23 @@ def compute_losses(gaussians: GaussianState, camera: Camera, data: TrainData,
     out = R.rasterize(
         means, quats, scales, op, colors, cam_i, mc.rasterize,
         normals=normals_g,
-        background=torch.tensor(mc.background, dtype=torch.float32,
-                                device=means.device),
+        background=device_vector(mc.background, means.device),
         mean2d_tap=tap, absgrad_tap=absgrad_tap, bins=bins,
         device=means.device)
     return loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step,
-                      cfg, alive_r, render_n=render_n)
+                      cfg, alive_r, render_n=render_n,
+                      generator=None if inputs is None else inputs.generator)
 
 
 def loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step, cfg,
-               alive_r, render_n=None):
-    """DN-Splatter loss stack on rendered outputs -> (total, (parts, aux))."""
+               alive_r, render_n=None, generator=None):
+    """DN-Splatter loss stack on rendered outputs -> (total, (parts, aux)).
+    The SDF draw uses `generator` when given (seeded with the step by the
+    caller), else a generator seeded with `step`."""
     lc = cfg.loss
-    image_gt = data.images[cam_idx]
-    mask = data.masks[cam_idx][..., None] if data.masks is not None else None
+    image_gt = pick(data.images, cam_idx)
+    mask = (pick(data.masks, cam_idx)[..., None] if data.masks is not None
+            else None)
 
     total = L.rgb_loss(out.rgb, image_gt, mask, lc.ssim_lambda)
     parts = {"rgb": total}
@@ -144,11 +226,11 @@ def loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step, cfg,
         return L.DEPTH_LOSSES[lc.depth_loss](out.depth, gt_depth, valid)
 
     if data.sensor_depths is not None and lc.sensor_depth_lambda > 0:
-        d = depth_term(data.sensor_depths[cam_idx])
+        d = depth_term(pick(data.sensor_depths, cam_idx))
         parts["sensor_depth"] = d
         total = total + lc.sensor_depth_lambda * d
     if data.mono_depths is not None and lc.mono_depth_lambda > 0:
-        d = depth_term(data.mono_depths[cam_idx])
+        d = depth_term(pick(data.mono_depths, cam_idx))
         parts["mono_depth"] = d
         total = total + lc.mono_depth_lambda * d
     if lc.smooth_lambda > 0:
@@ -158,7 +240,7 @@ def loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step, cfg,
         total = total + lc.smooth_lambda * sm
     if lc.normal_lambda > 0:
         if data.normals is not None and lc.normal_supervision == "mono":
-            gt_n = data.normals[cam_idx]
+            gt_n = pick(data.normals, cam_idx)
         else:
             n_cam = L.normals_from_depth(out.depth.detach(), cam_i)
             gt_n = n_cam @ cam_i.camtoworld[:3, :3].T
@@ -192,7 +274,8 @@ def loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step, cfg,
                 s_means[:render_n], s_quats[:render_n], s_scales[:render_n],
                 s_op[:render_n])
         # the samples are seeded from the step, as the JAX loss seeds its key
-        gen = torch.Generator(device=out.depth.device).manual_seed(step)
+        gen = (generator if generator is not None else
+               torch.Generator(device=out.depth.device).manual_seed(step))
         pts, _ = sample_points_in_gaussians(gen, s_means, s_quats, s_scales,
                                             alive_r, lc.sdf_samples)
         sd = sdf_loss(pts, s_means, s_quats, s_scales, s_op, alive_r,
@@ -235,13 +318,17 @@ class BinCache:
         self.age = [refresh] * num_views
         self.refresh = refresh
 
-    def lookup(self, v: int, make):
+    def due(self, v: int) -> bool:
+        """Tick every age for a visit of view v; True when v rebins now."""
         need = self.age[v] >= self.refresh
-        if need:
-            self.bins[v] = make()
         self.age = [a + 1 for a in self.age]
         if need:
             self.age[v] = 1
+        return need
+
+    def lookup(self, v: int, make):
+        if self.due(v):
+            self.bins[v] = make()
         return self.bins[v]
 
 
@@ -286,28 +373,34 @@ def _keep_adam(ok: torch.Tensor, new: AdamState, old: AdamState) -> AdamState:
 
 
 def train_step(gaussians: GaussianState, opt: AdamState, cam_state,
-               stats: RefineStats, step: int, cam_idx: int, *,
+               stats: RefineStats, step: Optional[int], cam_idx: int, *,
                cfg: ExperimentConfig, camera: Camera, data: TrainData,
                adam_groups=None, render_n: Optional[int] = None,
-               cache: Optional[BinCache] = None):
+               cache: Optional[BinCache] = None,
+               inputs: Optional[StepInputs] = None):
     """One training step -> (gaussians, opt, cam_state, stats, metrics).
     `cfg` must carry the adaptive overrides (patched_cfg); `cache` is the
     chunk's BinCache (flat backend only), or None to bin every step;
     cam_state is (deltas (V, 6), AdamState), updated when
-    cfg.train.camera_opt."""
+    cfg.train.camera_opt. With `inputs` (StepInputs) the step reads its
+    step-dependent values from the device instead of `step`, which is then
+    None: that is the step a CUDA graph captures (train/graphs.py)."""
     groups = adam_groups or DEFAULT_GROUPS
     use_cam_opt = cfg.train.camera_opt
     cam_deltas, cam_opt = cam_state
+    dev_kw = ({} if inputs is None
+              else dict(lr=inputs.lr, gate=inputs.gate))
     if cfg.model.binary_opacities:
         adc = cfg.train.adc
         gaussians = gaussians.replace(logit_opacities=binary_opacity_surgery(
             gaussians.logit_opacities, step,
             threshold=cfg.model.binary_opacity_threshold, warmup=adc.warmup,
             skip=adc.reset_alpha_every * adc.refine_every,
-            margin=cfg.model.binary_opacity_margin))
+            margin=cfg.model.binary_opacity_margin,
+            due=None if inputs is None else inputs.surgery))
     fb = None
     if cache is not None:
-        delta_v = cam_deltas[cam_idx] if use_cam_opt else None
+        delta_v = pick(cam_deltas, cam_idx) if use_cam_opt else None
         fb = cache.lookup(cam_idx, lambda: bin_view(
             cfg, camera, gaussians, cam_idx, render_n, cam_delta=delta_v))
 
@@ -326,7 +419,8 @@ def train_step(gaussians: GaussianState, opt: AdamState, cam_state,
     loss, (_, aux) = compute_losses(
         gaussians.replace(**params), camera, data, cam_idx, step, cfg, tap,
         absgrad_tap=abs_tap, render_n=render_n, bins=fb,
-        cam_delta=deltas[cam_idx] if use_cam_opt else None)
+        cam_delta=pick(deltas, cam_idx) if use_cam_opt else None,
+        inputs=inputs)
     leaves = list(params.values()) + [abs_tap if use_absgrad else tap]
     if use_cam_opt:
         leaves.append(deltas)
@@ -345,20 +439,18 @@ def train_step(gaussians: GaussianState, opt: AdamState, cam_state,
     tap_grad = torch.where(ok, tap_grad, torch.zeros_like(tap_grad))
 
     new_p, opt2 = adam_step(old, param_grads, opt, step, gaussians.alive,
-                            groups=groups)
+                            groups=groups, **dev_kw)
     new_p = {k: torch.where(ok, new_p[k], old[k]) for k in old}
     opt2 = _keep_adam(ok, opt2, opt)
     gaussians2 = gaussians.replace(**new_p)
 
     if use_cam_opt:
         # accumulated, bias-corrected Adam on the (V, 6) pose deltas
-        cam_group = {"cam_delta": GroupSpec(
-            cfg.train.camera_opt_lr, every_k=cfg.train.camera_opt_every_k,
-            eps=1e-8)}
         cam_p, cam_opt2 = adam_step(
             {"cam_delta": cam_deltas}, {"cam_delta": grads[-1]}, cam_opt,
             step, torch.ones(cam_deltas.shape[0], dtype=torch.bool,
-                             device=dev), groups=cam_group)
+                             device=dev),
+            groups={"cam_delta": camera_group(cfg)}, **dev_kw)
         cam_deltas = torch.where(ok, cam_p["cam_delta"], cam_deltas)
         cam_opt = _keep_adam(ok, cam_opt2, cam_opt)
 
@@ -375,6 +467,228 @@ def train_step(gaussians: GaussianState, opt: AdamState, cam_state,
                "pairs_used": aux["pairs_used"],
                "nonfinite": (~ok).to(torch.int32)}
     return gaussians2, opt2, (cam_deltas, cam_opt), stats2, metrics
+
+
+def make_fused_intervals(cfg: ExperimentConfig, camera: Camera,
+                         data: TrainData, adam_groups=None,
+                         render_n: Optional[int] = None,
+                         tile_capacity: Optional[int] = None,
+                         cover_tiles: Optional[int] = None,
+                         interval: Optional[int] = None,
+                         n_intervals: int = 5, scene_scale: float = 1.0,
+                         pool=None):
+    """The JAX trainer's make_fused_intervals: f(gaussians, opt, cam_state,
+    stats, step0) -> (gaussians, opt, cam_state, stats, metrics) running
+    n_intervals refine intervals (FusedIntervals; `pool` is the CUDA graph
+    memory pool on the card)."""
+    fused = FusedIntervals(cfg, camera, data, adam_groups=adam_groups,
+                           render_n=render_n, tile_capacity=tile_capacity,
+                           cover_tiles=cover_tiles, interval=interval,
+                           scene_scale=scene_scale, pool=pool)
+    return lambda g, o, cs, st, step0: fused(g, o, cs, st, step0, n_intervals)
+
+
+def refine_due(adc, step: int) -> bool:
+    """The JAX trainer's refine gate: warmup <= step < stop_split_at, on the
+    refine_every grid."""
+    return (step >= adc.warmup and step < adc.stop_split_at
+            and (step - adc.warmup) % adc.refine_every == 0)
+
+
+def refine_at(gaussians: GaussianState, opt: AdamState, stats: RefineStats,
+              step: int, cfg: ExperimentConfig, scene_scale: float):
+    """The ADC refine at `step`, its split normals drawn from a generator
+    seeded as the JAX trainer seeds its key: seed * 1_000_003 + step, as
+    uint32. Returns (gaussians, opt, stats, info)."""
+    dev = gaussians.device
+    seed = (cfg.train.seed * 1_000_003 + step) % (1 << 32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = split_noise(gen, cfg.train.adc.n_split_samples,
+                        gaussians.capacity, dev)
+    return refine(gaussians, opt, stats, noise, cfg.train.adc, step,
+                  scene_scale=scene_scale)
+
+
+def map_train_state(gaussians, opt, cam_state, stats, fn):
+    """fn applied to every tensor of the training state (gaussians, Adam
+    state, (pose deltas, their Adam state), refine stats), structure kept:
+    map_train_state(*state, torch.clone) copies a trainer's state."""
+    def adam(o):
+        return AdamState(*({k: fn(v) for k, v in tree.items()}
+                           for tree in (o.m, o.v, o.acc, o.counts)))
+    return (GaussianState(**{k: fn(v) for k, v in gaussians.fields().items()}),
+            adam(opt), (fn(cam_state[0]), adam(cam_state[1])),
+            RefineStats(**{k: fn(v) for k, v in stats.fields().items()}))
+
+
+def _state_tensors(gaussians, opt, cam_state, stats) -> list:
+    out = []
+    map_train_state(gaussians, opt, cam_state, stats, out.append)
+    return out
+
+
+class _BinSlots:
+    """A fused interval's per-view FlatBins, each field stacked over the
+    views in one persistent buffer: a visit that rebins (BinCache's
+    decision, taken on the host) writes row v, the others read it; v is a
+    (1,) index tensor on the device."""
+
+    def __init__(self, slots: FlatBins, rebin: bool, write: bool):
+        self.slots, self.rebin, self.write = slots, rebin, write
+
+    def lookup(self, v: torch.Tensor, make):
+        if not self.rebin:
+            return FlatBins(*(None if x is None else pick(x, v)
+                              for x in self.slots))
+        fb = make()
+        if self.write:
+            for dst, src in zip(self.slots, fb):
+                if dst is not None:
+                    dst.index_copy_(0, v, src[None])
+        return fb
+
+
+_METRICS = {"loss": torch.float32, "psnr": torch.float32,
+            "overflow": torch.int32, "pairs_used": torch.int32}
+
+
+class FusedIntervals:
+    """Refine intervals back to back, as the JAX trainer's
+    make_fused_intervals: each interval runs `interval` steps with camera
+    order (s0 + i) % V and a bin cache that starts stale, then, when the
+    refine gate fires at its end, the ADC refine (seeded as
+    Trainer.refine_boundary seeds it) and the alive-first compaction. No
+    extra callback, checkpoint, debug grid or policy runs, and render_n is
+    not re-picked. One metrics row per interval: the last step's loss,
+    psnr, overflow, trunc_by_win and pairs_used, and the summed nonfinite.
+
+    The steps run in persistent buffers with their step-dependent values
+    read from the device (StepInputs and the view, tables of the interval's
+    rows indexed by a step counter). On a CUDA device each step is a replay
+    of a CUDA graph, one per rebin decision: two with the flat bin cache,
+    one without (train/graphs.py); on the CPU the same step runs eagerly.
+    The refine and compaction run eagerly between intervals; neither makes
+    a host sync."""
+
+    def __init__(self, cfg: ExperimentConfig, camera: Camera, data: TrainData,
+                 *, adam_groups=None, render_n: Optional[int] = None,
+                 tile_capacity: Optional[int] = None,
+                 cover_tiles: Optional[int] = None,
+                 interval: Optional[int] = None, scene_scale: float = 1.0,
+                 pool=None):
+        self.cfg = patched_cfg(cfg, tile_capacity, cover_tiles)
+        self.camera, self.data = camera, data
+        self.adam_groups = adam_groups
+        self.render_n = render_n
+        self.interval = interval or cfg.train.adc.refine_every
+        self.scene_scale = scene_scale
+        self.num_views = data.images.shape[0]
+        self.sched = StepSchedule(cfg, adam_groups)
+        dev = data.images.device
+        self.buf = self.bins = None    # allocated by the first call
+        self.table = torch.zeros((self.interval, self.sched.columns),
+                                 device=dev)
+        self.views = torch.zeros((self.interval,), dtype=torch.int64,
+                                 device=dev)
+        self.counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.last = {k: torch.zeros((), dtype=t, device=dev)
+                     for k, t in _METRICS.items()}
+        self.last["trunc_by_win"] = torch.zeros((5,), dtype=torch.int32,
+                                                device=dev)
+        self.nonfinite = torch.zeros((), dtype=torch.int32, device=dev)
+        self.generator = (torch.Generator(device=dev)
+                          if cfg.loss.sdf_lambda > 0 else None)
+        self.refresh = cfg.train.bin_refresh_steps
+        self.graphs = None
+        if dev.type == "cuda":
+            from fusionsense_tpu_torch.train.graphs import StepGraphs
+
+            self.graphs = StepGraphs(pool, self.generator)
+
+    def _allocate(self, state) -> None:
+        """The persistent buffers: a copy of the state and, with the bin
+        cache, every view's bins stacked (valid values for their shapes)."""
+        self.buf = map_train_state(*state, torch.clone)
+        if self.refresh > 0 and self.cfg.model.rasterize.backend == "flat":
+            deltas = self.buf[2][0]
+            cam_opt = self.cfg.train.camera_opt
+            per_view = [bin_view(self.cfg, self.camera, self.buf[0], v,
+                                 self.render_n,
+                                 cam_delta=deltas[v] if cam_opt else None)
+                        for v in range(self.num_views)]
+            self.bins = FlatBins(*(None if f[0] is None else torch.stack(f)
+                                   for f in zip(*per_view)))
+
+    def _load(self, *state) -> None:
+        for dst, src in zip(_state_tensors(*self.buf), _state_tensors(*state)):
+            dst.copy_(src)
+
+    def _step(self, rebin: bool, commit: bool = True) -> None:
+        """One step from the buffers, its view and step-dependent values
+        read at the step counter; with commit, its results go back into the
+        buffers and the counter advances."""
+        row = self.table.index_select(0, self.counter)[0]
+        v = self.views.index_select(0, self.counter)
+        cache = (None if self.bins is None
+                 else _BinSlots(self.bins, rebin, commit))
+        g, o, cs, st, m = train_step(
+            *self.buf, None, v, cfg=self.cfg,
+            camera=self.camera, data=self.data, adam_groups=self.adam_groups,
+            render_n=self.render_n, cache=cache,
+            inputs=self.sched.inputs(row, self.generator))
+        if commit:
+            self._load(g, o, cs, st)
+            for k, t in self.last.items():
+                t.copy_(m[k])
+            self.nonfinite.add_(m["nonfinite"])
+            self.counter.add_(1)
+
+    def __call__(self, gaussians, opt, cam_state, stats, step0: int,
+                 n_intervals: int):
+        """Run n_intervals intervals from step0 ->
+        (gaussians, opt, cam_state, stats, metrics), the state new tensors
+        and metrics one row per interval."""
+        if self.buf is None:
+            self._allocate((gaussians, opt, cam_state, stats))
+        else:
+            self._load(gaussians, opt, cam_state, stats)
+        adc = self.cfg.train.adc
+        rows = []
+        for i in range(n_intervals):
+            s0 = step0 + i * self.interval
+            host = (self.sched.rows(range(s0, s0 + self.interval)),
+                    torch.arange(s0, s0 + self.interval) % self.num_views)
+            for dst, src in zip((self.table, self.views), host):
+                if self.graphs is not None:   # no host sync: pinned, async
+                    dst.copy_(src.pin_memory(), non_blocking=True)
+                else:
+                    dst.copy_(src)
+            self.counter.zero_()
+            self.nonfinite.zero_()
+            # every view rebins on its first visit of the interval, so the
+            # refine and compaction below never meet stale slots
+            cache = (BinCache(self.num_views, self.refresh)
+                     if self.bins is not None else None)
+            for s in range(s0, s0 + self.interval):
+                rebin = cache is not None and cache.due(s % self.num_views)
+                if self.generator is not None:
+                    self.generator.manual_seed(s)
+                if self.graphs is None:
+                    self._step(rebin)
+                else:
+                    self.graphs.run(rebin, functools.partial(self._step,
+                                                             rebin))
+            s_end = s0 + self.interval
+            if refine_due(adc, s_end):
+                g, o, st, _ = refine_at(self.buf[0], self.buf[1], self.buf[3],
+                                        s_end, self.cfg, self.scene_scale)
+                g, o, st = compact_train_state(g, o, st)
+                self._load(g, o, self.buf[2], st)
+            row = {k: t.clone() for k, t in self.last.items()}
+            row["nonfinite"] = self.nonfinite.clone()
+            rows.append(row)
+        metrics = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        return (*map_train_state(*self.buf, torch.clone), metrics)
 
 
 class Trainer:
@@ -425,6 +739,8 @@ class Trainer:
         self._grid_tiles = (-(-camera.width // rc.tile_size)
                             * -(-camera.height // rc.tile_size))
         self._nf_acc = None
+        self._fused: dict = {}       # run_fused's FusedIntervals by key
+        self._graph_pool = None      # one CUDA graph memory pool for them
         if self.auto_capacity:
             n0 = int(self.gaussians.num_alive)
             cap0 = pick_capacity(n0, self.gaussians.capacity,
@@ -498,11 +814,6 @@ class Trainer:
         if want_w != cur_w:
             self.cover_tiles = want_w * want_w
 
-    def _refine_due(self, step: int) -> bool:
-        adc = self.cfg.train.adc
-        return (step >= adc.warmup and step < adc.stop_split_at
-                and (step - adc.warmup) % adc.refine_every == 0)
-
     def refine_boundary(self) -> Optional[dict]:
         """The host side between chunks: the ADC refine when one is due at
         this step, then the extra callbacks, then the recompact whenever the
@@ -511,15 +822,10 @@ class Trainer:
         cfg = self.cfg
         info = None
         changed = False
-        if self._refine_due(self.step):
-            # the JAX trainer's seed: seed * 1_000_003 + step, as uint32
-            seed = (cfg.train.seed * 1_000_003 + self.step) % (1 << 32)
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            noise = split_noise(gen, cfg.train.adc.n_split_samples,
-                                self.gaussians.capacity, self.device)
-            self.gaussians, self.opt, self.stats, info = refine(
-                self.gaussians, self.opt, self.stats, noise, cfg.train.adc,
-                self.step, scene_scale=self.scene_scale)
+        if refine_due(cfg.train.adc, self.step):
+            self.gaussians, self.opt, self.stats, info = refine_at(
+                self.gaussians, self.opt, self.stats, self.step, cfg,
+                self.scene_scale)
             changed = True
         for cb in self.extra_callbacks:
             changed |= bool(cb(self))
@@ -545,11 +851,91 @@ class Trainer:
 
     def run_fused(self, n_intervals: int, interval: Optional[int] = None,
                   block: bool = False):
-        raise NotImplementedError(
-            "run_fused is not ported (ROADMAP N2: pair it with CUDA graphs)")
+        """Advance n_intervals refine intervals (FusedIntervals): on the
+        card, replays of CUDA graphs of the step, with the refine and the
+        compaction between intervals and no host sync. Preconditions the
+        caller owns, as in the JAX trainer: the adaptive policies have
+        settled, and self.step sits on a refine boundary (else ValueError).
+        Host policy state is not updated: call sync_policies() after.
+
+        Returns the per-interval metrics (device tensors, one row per
+        interval); block=True waits for the device."""
+        adc = self.cfg.train.adc
+        interval = interval or adc.refine_every
+        if (self.step - adc.warmup) % adc.refine_every:
+            raise ValueError(
+                f"run_fused at step {self.step}: not on a refine boundary")
+        # JAX's _chunk_cache key; the step gates are device inputs here
+        key = (self.gaussians.capacity, self.render_n, self.tile_capacity,
+               self.cover_tiles, interval)
+        state = (self.gaussians, self.opt, self.cam_state, self.stats)
+        fn = self._fused.get(key)
+        if fn is None:
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            fn = self._fused[key] = FusedIntervals(
+                self.cfg, self.camera, self.data,
+                adam_groups=self._adam_groups, render_n=self.render_n,
+                tile_capacity=self.tile_capacity,
+                cover_tiles=self.cover_tiles, interval=interval,
+                scene_scale=self.scene_scale, pool=self._graph_pool)
+        (self.gaussians, self.opt, self.cam_state, self.stats,
+         metrics) = fn(*state, self.step, n_intervals)
+        self.step += n_intervals * interval
+        if block and self.device.type == "cuda":
+            torch.cuda.synchronize()
+        return metrics
+
+    def graph_stats(self) -> dict:
+        """CUDA graphs captured by run_fused so far: their number, the
+        seconds their captures took (warm-ups included), their replays and
+        the MB their shared memory pool holds."""
+        gs = [f.graphs for f in self._fused.values() if f.graphs is not None]
+        out = {"graphs": sum(len(g.graphs) for g in gs),
+               "capture_s": sum(g.capture_s for g in gs),
+               "replays": sum(g.replays for g in gs), "pool_mb": 0.0}
+        if self._graph_pool is not None:
+            from fusionsense_tpu_torch.train.graphs import pool_bytes
+
+            out["pool_mb"] = pool_bytes(self._graph_pool)[1] / 1e6
+        return out
 
     def sync_policies(self, metrics=None):
-        raise NotImplementedError("sync_policies is not ported (ROADMAP N2)")
+        """One host read re-establishing the adaptive policy state after
+        run_fused: re-bucket capacity, re-pick the render prefix, and tick
+        the K, pair-budget and cover-window policies from `metrics` (the
+        last run_fused return; its final row). Appends the JAX trainer's
+        history record and returns n_alive."""
+        cfg = self.cfg
+        fetch = [self.gaussians.num_alive.reshape(1)]
+        if metrics is not None:
+            fetch += [metrics[k][-1].reshape(1) for k in
+                      ("pairs_used", "overflow", "loss", "psnr")]
+            fetch += [metrics["nonfinite"].sum().reshape(1),
+                      metrics["trunc_by_win"][-1].reshape(-1)]
+        vals = torch.cat([x.double() for x in fetch]).tolist()
+        n_alive = int(vals[0])
+        if self.auto_capacity:
+            cap = pick_capacity(n_alive, self.gaussians.capacity,
+                                self.max_capacity,
+                                minimum=min(1024, self.max_capacity))
+            if cap != self.gaussians.capacity:
+                self.gaussians, self.opt, self.stats = resize_train_state(
+                    self.gaussians, self.opt, self.stats, new_capacity=cap)
+        if cfg.train.render_prefix:
+            self._recompact(n_alive)
+        if metrics is not None:
+            pu, ovf, loss_h, psnr_h, nf = vals[1:6]
+            self._maybe_bump_tile_capacity(int(ovf))
+            self._maybe_resize_pair_budget(int(pu))
+            self._maybe_adjust_cover_window([int(x) for x in vals[6:]])
+            self.history.append({
+                "step": self.step, "loss": loss_h, "psnr": psnr_h,
+                "num_gaussians": n_alive, "tile_overflow": int(ovf),
+                "nonfinite_steps": int(nf),
+                "capacity": self.gaussians.capacity,
+            })
+        return n_alive
 
     def run(self, iterations: Optional[int] = None, log=print):
         cfg = self.cfg

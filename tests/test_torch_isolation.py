@@ -1,5 +1,5 @@
 """The port stands alone: no module of fusionsense_tpu_torch, nor
-chip_smoke.py, imports jax, jaxlib or fusionsense_tpu; none imports Pillow
+chip_smoke.py or bench_torch.py, imports jax, jaxlib or fusionsense_tpu; none imports Pillow
 or scikit-learn at module level, and none imports scikit-learn at all (the
 card's machine has none); its entry points run on the card by default and
 raise when none is there."""
@@ -14,7 +14,7 @@ from fusionsense_tpu_torch import device as D
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fusionsense_tpu")
 FILES = sorted((ROOT / "fusionsense_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def _imports(path: Path):

@@ -301,6 +301,163 @@ def test_touch_on_card_matches_cpu(card):
                                                              want[2]).alive)
 
 
+def _fused_trainer(device, backend, stop_split_at=150, camera_opt=False,
+                   sdf=False):
+    """test_train_e2e.py:289's run_fused setting, built with the port alone
+    on `device`: 4 views at 64x48, tile 16, refines at every 50 steps from
+    50, the adaptive policies held still; the flat backend rebins each view
+    every 9 steps. Options: camera optimisation (Adam every 10 steps), the
+    SDF loss (its draw inside the step)."""
+    import dataclasses
+
+    from fusionsense_tpu_torch import config as CF
+    from fusionsense_tpu_torch.data import synthetic as SYN
+    from fusionsense_tpu_torch.gaussians.adc import ADCConfig
+    from fusionsense_tpu_torch.gaussians.init import init_from_points
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.render.rasterize import (
+        RasterizeConfig, rasterize,
+    )
+    from fusionsense_tpu_torch.train.trainer import TrainData, Trainer
+
+    cams = SYN.ring_cameras(n_views=4, width=64, height_px=48, focal=60.0,
+                            device=device)
+    pts, rgb, nrm = SYN.sphere_points(n=400, radius=0.5, device=device)
+    gt = init_from_points(pts, rgb, capacity=512, sh_degree=1,
+                          seed_normals=nrm, init_opacity=0.95)
+    rc = RasterizeConfig(tile_size=16, tile_capacity=128,
+                         max_tiles_per_gaussian=8, tile_chunk=12, sh_degree=1,
+                         backend=backend)
+    imgs, deps, nms = [], [], []
+    with torch.no_grad():
+        for i in range(4):
+            out = rasterize(*activated(gt), cams.index(i),
+                            dataclasses.replace(rc, tile_capacity=512),
+                            device=device)
+            d, n, _ = SYN.sphere_depth_normals(cams.index(i))
+            imgs.append(out.rgb)
+            deps.append(d)
+            nms.append(n)
+    data = TrainData(images=torch.stack(imgs), sensor_depths=torch.stack(deps),
+                     normals=torch.stack(nms))
+    p2, r2, _ = SYN.sphere_points(n=150, radius=0.5, device=device)
+    cfg = CF.ExperimentConfig(
+        model=CF.ModelConfig(sh_degree=1, rasterize=rc, capacity=1024,
+                             binary_opacities=False),
+        train=CF.TrainConfig(
+            iterations=150, scan_chunk=50, log_every=50, auto_capacity=False,
+            auto_tile_capacity=False, auto_cover_window=False,
+            bin_refresh_steps=9, camera_opt=camera_opt,
+            camera_opt_every_k=10,
+            adc=ADCConfig(warmup=50, refine_every=50,
+                          stop_split_at=stop_split_at,
+                          densify_grad_thresh=1e-5, cull_alpha_thresh=0.05)),
+        loss=CF.LossConfig(normal_lambda=0.1, sensor_depth_lambda=0.2,
+                           smooth_lambda=0.0, flatness_lambda=0.01,
+                           sdf_lambda=0.1 if sdf else 0.0, sdf_samples=128))
+    init = init_from_points(p2, r2, capacity=1024, sh_degree=1,
+                            generator=torch.Generator().manual_seed(0))
+    return lambda: Trainer(cfg, cams, data, init.replace(
+        **{k: v.clone() for k, v in init.fields().items()}), device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,extras", [
+    ("flat", False), ("pallas", False), ("pallas", True), ("jax", False)])
+def test_fused_graphs_match_eager_on_card(card, backend, extras):
+    """Two intervals of 50 as CUDA graph replays (a refine at 50 between
+    them) against Trainer.run over the same steps: n_alive and the alive
+    mask equal, means within rtol 1e-4 / atol 1e-5, PSNR within 0.05, and
+    the kernels launched once per step inside the replays. `extras` adds
+    camera optimisation and the SDF loss, whose draw runs inside the
+    replays."""
+    from fusionsense_tpu_torch.train import graphs as G
+
+    make = _fused_trainer(card, backend, camera_opt=extras, sdf=extras)
+    tr_a = make()
+    tr_a.run(iterations=100, log=None)
+    tr_b = make()
+    G.reset_launch_counts()
+    n = tr_b.sync_policies(tr_b.run_fused(2, interval=50))
+    assert tr_b.step == 100 and n == int(tr_a.gaussians.num_alive)
+    assert torch.equal(tr_a.gaussians.alive, tr_b.gaussians.alive)
+    torch.testing.assert_close(tr_b.gaussians.means, tr_a.gaussians.means,
+                               rtol=1e-4, atol=1e-5)
+    assert abs(tr_a.history[-1]["psnr"] - tr_b.history[-1]["psnr"]) < 0.05
+    if extras:
+        torch.testing.assert_close(tr_b.cam_state[0], tr_a.cam_state[0],
+                                   rtol=1e-4, atol=1e-6)
+    stats = tr_b.graph_stats()
+    # one graph per rebin decision of the flat bin cache, one without it
+    assert stats["replays"] == 100
+    assert stats["graphs"] == (2 if backend == "flat" else 1)
+    if backend != "jax":     # the jax backend launches no kernel of ours
+        key = "flat_composite" if backend == "flat" else "composite2"
+        assert G.REPLAYED[f"{key}_fwd"] >= 100
+        assert G.REPLAYED[f"{key}_bwd"] >= 100
+    assert G.pool_bytes(tr_b._graph_pool)[0] == 0
+
+
+@pytest.mark.gpu
+def test_graph_replay_draws_what_the_eager_step_draws(card):
+    """The SDF draw inside a captured step: with the generator registered
+    with the graph and seeded with the step before each replay, a replay
+    draws exactly what a fresh generator seeded with that step draws (the
+    eager step's draw), in any order, the replay that follows the capture
+    included (the capture's warm-up must not move the generator)."""
+    from fusionsense_tpu_torch.train.graphs import StepGraphs
+    from fusionsense_tpu_torch.train.sdf_loss import (
+        sample_points_in_gaussians,
+    )
+
+    rng = np.random.RandomState(0)
+    f32 = lambda *shape: torch.tensor(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32), device=card)
+    args = (f32(500, 3), f32(500, 4), torch.exp(f32(500, 3) - 3),
+            torch.tensor(rng.uniform(size=500) > 0.2, device=card))
+    gen = torch.Generator(card)
+    out_p = torch.zeros((256, 3), device=card)
+    out_i = torch.zeros((256,), dtype=torch.int64, device=card)
+
+    def body(commit):
+        p, i = sample_points_in_gaussians(gen, *args, 256)
+        if commit:
+            out_p.copy_(p)
+            out_i.copy_(i)
+
+    graphs = StepGraphs(torch.cuda.graph_pool_handle(), gen)
+    for step in (3, 7, 3, 11):
+        gen.manual_seed(step)
+        graphs.run("draw", body)
+        want_p, want_i = sample_points_in_gaussians(
+            torch.Generator(card).manual_seed(step), *args, 256)
+        assert torch.equal(out_i, want_i) and torch.equal(out_p, want_p), step
+    assert len(graphs.graphs) == 1 and graphs.replays == 4
+
+
+@pytest.mark.gpu
+def test_step_and_fused_interval_make_no_host_sync(card):
+    """torch.cuda.set_sync_debug_mode("error") around one eager step and
+    around one fused interval whose end refines and compacts."""
+    from fusionsense_tpu_torch.train.trainer import patched_cfg, train_step
+
+    tr = _fused_trainer(card, "flat", stop_split_at=1000)()
+    tr.run(iterations=50, log=None)
+    tr.run_fused(1, interval=50)          # captures the graphs
+    cfg = patched_cfg(tr.cfg, tr.tile_capacity, tr.cover_tiles)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train_step(tr.gaussians, tr.opt, tr.cam_state, tr.stats, tr.step, 0,
+                   cfg=cfg, camera=tr.camera, data=tr.data,
+                   render_n=tr.render_n)
+        tr.run_fused(1, interval=50)      # refine and compaction at 150
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tr.step == 150
+
+
 def test_cpu_tensors_take_the_plain_version():
     FC.reset_launch_counts()
     tab, bt, _, bc, g_out, g_alpha = case("mixed")

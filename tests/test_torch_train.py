@@ -560,8 +560,3 @@ def test_off_slice_options_raise(fixture):
                                                  blend_bf16=True)))
     with pytest.raises(NotImplementedError, match="N5"):
         TRT.Trainer(bf16, cams_t, data_t, st_t, device="cpu")
-    tr = TRT.Trainer(cfg, cams_t, data_t, st_t, device="cpu")
-    for fn in (lambda: tr.run_fused(2), tr.sync_policies):
-        with pytest.raises(NotImplementedError, match="N2"):
-            fn()
-    assert tr.step == 0
