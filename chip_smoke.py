@@ -5,8 +5,8 @@ its CUDA kernels against its plain PyTorch version.
 
 Phases (any failure exits non-zero and prints no result):
  1. device and build: the card's name, power limit and SM clock; whether
-    Pillow, scipy and scikit-learn import (the port's path needs Pillow and
-    scipy); the nvcc build of every kernel (one process per source, all at
+    Pillow, scipy, scikit-learn and imageio import (the port's path needs
+    Pillow and scipy); the nvcc build of every kernel (one process per source, all at
     once) with its ptxas register / shared-memory report;
  2. the bench scene (bench.py's workload, built with the port's own code):
     9 views at 640x480, 60,000 GT points rendered through K1, a 30,000-point
@@ -23,7 +23,11 @@ Phases (any failure exits non-zero and prints no result):
     state at the shape those 50 steps ran, each timed with CUDA events
     (K1/K2 beside their bounds); the two block passes timed again with the
     cull defeated (the culled rows' log_op raised just above its bound, so
-    their alpha stays 0 and the outputs must not move);
+    their alpha stays 0 and the outputs must not move); then K1/K2's
+    blend_bf16 branch (ROADMAP N5) and its stages against their plain twins
+    on the same inputs (check_bf16: the float32 limits on all but a small
+    share of elements, and the float32 kernel several times farther off),
+    and timed;
  6. a torch.profiler trace of 5 more flat steps: device time by kernel and
     the device's busy share of the step;
  7. the dense path on the same scene and initial state: the dn_splatter
@@ -33,8 +37,8 @@ Phases (any failure exits non-zero and prints no result):
     against its plain twin on the same inputs, and the forward chunks the
     stop rule discards; Trainer.run for 60 steps with the counters zeroed
     just before and read after, the last 50 timed; K3/K4 and their stages
-    checked again and timed at the timed steps' shape; a profile of 5 more
-    dense steps;
+    checked again and timed at the timed steps' shape, their blend_bf16
+    branch too; a profile of 5 more dense steps;
  8. the fusionsense path on the same scene and initial state: the
     fusionsense preset with backend="pallas" through its whole schedule,
     scaled as the JAX package's full-schedule CPU test scales it (depth cut:
@@ -53,24 +57,35 @@ Phases (any failure exits non-zero and prints no result):
     1e-5 relative); the splat PLY written and read back (count =
     num_alive); 20 more steps with camera optimisation and the SDF loss
     (finite loss each step, nonzero pose deltas);
- 9. fs-train's default backend, jax (the plain PyTorch compositor), on the
+ 9. the mesh phase: mesh_export.extract with each of its five methods
+    (tsdf, dn, sugar-coarse, gaussians, marching) at their defaults
+    (resolution MESH_RES = 192) on the fusionsense path's
+    trained model, each timed with CUDA synchronisation and the launch
+    counters zeroed just before and read just after: the methods that
+    render launch K3 at least once per view, its plain twin never; then
+    tsdf on the flat path's model, which launches K1. Seconds, verts and
+    faces per method; the tsdf meshes' chamfer x 1e3 against N_SPHERE
+    points of the GT sphere;
+10. fs-train's default backend, jax (the plain PyTorch compositor), on the
     same scene and initial state: the dn_splatter preset for 60 steps,
     ms/step, peak memory, view-0 PSNR rising, no kernel launched;
-10. fs-train end to end from a capture on disk: the port's blob capture
+11. fs-train end to end from a capture on disk: the port's blob capture
     written on the card at 640x480 (focal 550) with a touch patch, its seed
     cloud dropped from transforms.json so the visual hull and the seed
     cloud from depth both run; cli.train.main with --backend pallas for
     600 steps (warmup 100, stop-split 600, so the high-grad export fires at
-    step 100; touch at 150, checkpoints every 300, an empty --mesh), then a
-    second main resumed from ckpt_300 to step 360. Seconds per stage, the
+    step 100; touch at 150, checkpoints every 300, the CLI's default --mesh
+    tsdf sugar-coarse), then a second main resumed from ckpt_300 to step
+    360 (an empty --mesh). Seconds per stage (the mesh stage's too), the
     prior and seed counts, ms/step, peak memory, the K3/K4 launches (their
     plain twins never), the metrics.json means and the logged PSNR, which
     must rise; every artifact read back through the port's own readers; the
     resumed run must enter at step 300 with the patch frozen, and its
     high-grad export (from the settled population) must find points whose
     clusters and ranks read back; then K3/K4 against their plain versions
-    on the first run's trained state, and timed there;
-11. fused refine intervals (Trainer.run_fused, CUDA graph replays of the
+    on the first run's trained state, and timed there; then fs-mesh (tsdf)
+    and fs-eval on the first run's last checkpoint, through K3;
+12. fused refine intervals (Trainer.run_fused, CUDA graph replays of the
     step) on the bench scene, for the flat configuration and for the dense
     one (dn_splatter, pallas): refines every 50 steps from step 100 and the
     adaptive policies held still; eager Trainer.run to step 200, then from
@@ -83,10 +98,12 @@ Phases (any failure exits non-zero and prints no result):
     included); ms/step over two timed windows beside the eager step; a
     profiled interval: device kernels, host launch calls and busy share
     per step;
-12. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+13. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
     fusionsense path's post-refine shape; launches those of every path
-    that runs the kernel, graph replays included; errors the largest of
-    every check), the card line, and last the result line.
+    that runs the kernel, graph replays and the mesh renders included;
+    errors the largest of every check; the blend_bf16 branch's times and
+    error beside the float32 ones), the card line, and last the result
+    line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -120,6 +137,21 @@ TOL_OUT, TOL_ALPHA = 1e-5, 1e-6
 TOL_DTAB_REL = 1e-5
 G_SCALE = 1e-4    # cotangent scale for K2's check: ~30x the per-pixel
 #                   cotangent of a mean loss over 640x480
+# the blend_bf16 branches (N5) against their plain twins, at the float32
+# limits above. Both round w after forming it as alpha * T_excl, but from
+# alpha (FMA-contracted in the kernel) and prefix sums (serial there, a
+# cumsum in the twin) whose last bits differ, so a w near a rounding
+# boundary lands on the neighbouring bf16 value in one of them. So each
+# product a bf16 stage writes is held to the float32 limit on all but
+# BF16_FLIP_FRAC of its elements, and those within one bf16 ulp (2^-8) of
+# a unit channel (out, acc) or of the scale (S, dtab columns). And the
+# float32 kernel on the same inputs must lie at least BF16_SEEN times
+# farther from the bf16 twin than the bf16 kernel does, in mean |d| (in
+# every column of dtab): a kernel that ignored the flag fails there.
+# Set from the readings of PERF.md section 6 (H100): at most 1.3e-4 of the
+# elements past the float32 limit, max|d| 2.5e-3, the float32 kernel at
+# least 1,050 times farther off.
+BF16_ULP, BF16_FLIP_FRAC, BF16_SEEN = 4e-3, 1e-3, 100.0
 # the fusionsense path: the preset's schedule with the depth cut of the JAX
 # package's full-schedule CPU test (tests/test_quality_ledger.py:201-207)
 FS_STEPS, FS_CHUNK = 700, 50
@@ -143,6 +175,11 @@ FUSED_ADC = dict(warmup=100, refine_every=50)
 FUSED_FROM, FUSED_INTERVALS, FUSED_WINDOW = 200, 4, 2
 TOL_FUSED = dict(rtol=1e-4, atol=1e-5)   # tests/test_train_e2e.py:289's
 TOL_FUSED_PSNR = 0.05
+# the mesh phase: mesh_export.extract's default resolution for every
+# method (marching's 7.1 M KNN queries included); the chamfer of the tsdf
+# meshes against N_SPHERE points of the scene's GT sphere (radius 0.5), as
+# full_schedule_torch.py measures it
+MESH_RES, N_SPHERE = 192, 20_000
 
 
 def log(msg):
@@ -273,9 +310,23 @@ def timed_entries(source, specs):
     return entries
 
 
-def check_columns(name, dtab, dtab_p):
-    """dtab held column by column at the column's own scale; returns the
-    largest absolute difference."""
+def time_bf16(entries, fns, errs):
+    """The blend_bf16 branch's times (kernel and plain twin, CUDA events as
+    for float32) and largest error, into each kernel's entry of the
+    {"kernels"} line beside its float32 numbers."""
+    for e, (fn, fn_p), err in zip(entries, fns, errs):
+        e["bf16_ms"] = cuda_ms(fn, TIMED_LAUNCHES, WARM_LAUNCHES)
+        e["bf16_plain_ms"] = cuda_ms(fn_p, TIMED_LAUNCHES, WARM_LAUNCHES)
+        e["bf16_max_abs_err"] = err
+        log(f"{e['name']} bf16: {e['bf16_ms']:.4f} ms (float32 "
+            f"{e['ms']:.4f}), plain {e['bf16_plain_ms']:.3f} ms, bound "
+            f"{e['bound_ms']:.4f} ms")
+
+
+def check_columns(name, dtab, dtab_p, tol=TOL_DTAB_REL):
+    """dtab held column by column at the column's own scale (max|d| of a
+    column <= tol * max|dtab_plain| of that column); returns the largest
+    absolute difference."""
     dtab, dtab_p = dtab.reshape(-1, dtab.shape[-1]), dtab_p.reshape(-1, dtab.shape[-1])
     err_col = (dtab - dtab_p).abs().amax(dim=0)
     scale_col = dtab_p.abs().amax(dim=0)
@@ -283,11 +334,48 @@ def check_columns(name, dtab, dtab_p):
     rel_col = (err_col / scale_col.clamp_min(1e-30)).tolist()
     log(f"{name} max|d| dtab {float(err_col.max()):.3e}; median nonzero "
         f"|dtab_plain| {float(nonzero.median()):.3e}; per column max|d| / "
-        f"max|dtab_plain| (limit {TOL_DTAB_REL:.0e}): "
+        f"max|dtab_plain| (limit {tol:.0e}): "
         + " ".join(f"{r:.1e}" for r in rel_col))
-    if not bool((err_col <= TOL_DTAB_REL * scale_col).all()):
+    if not bool((err_col <= tol * scale_col).all()):
         raise RuntimeError(f"{name} disagrees with its plain version")
     return float(err_col.max())
+
+
+def check_bf16(torch, name, got, plain, f32, limit, scale="abs"):
+    """A product of the blend_bf16 branch: the bf16 kernel's `got` against
+    the bf16 twin's `plain` on the same inputs, beside `f32`, the float32
+    kernel's on those inputs. |d| is taken absolutely (`scale` "abs"),
+    over max|plain| ("max") or over each column's max|plain| ("columns",
+    the last dimension). At most BF16_FLIP_FRAC of the elements may exceed
+    the float32 `limit`, none may exceed BF16_ULP, and f32's mean |d| must
+    be at least BF16_SEEN times got's (in each column, for "columns").
+    Returns the largest absolute difference."""
+    width = got.shape[-1] if scale == "columns" else 1
+    got, plain, f32 = (x.reshape(-1, width) for x in (got, plain, f32))
+    if scale == "abs":
+        s = torch.ones((1, 1), device=got.device)
+    elif scale == "max":
+        s = plain.abs().max().reshape(1, 1)
+    else:
+        s = plain.abs().amax(dim=0, keepdim=True)
+    s = s.clamp_min(1e-30)
+    d = (got - plain).abs() / s
+    d32 = (f32 - plain).abs() / s
+    frac = float((d > limit).float().mean())
+    worst = float(d.max())
+    mean, mean32 = d.mean(dim=0), d32.mean(dim=0)
+    seen = float((mean32 / mean.clamp_min(1e-30)).min())
+    log(f"{name} bf16 vs twin: beyond the float32 limit {limit:.0e}: "
+        f"{frac:.3e} of {d.numel()} (limit {BF16_FLIP_FRAC:.0e}); max|d| "
+        f"{worst:.3e} (limit {BF16_ULP:.0e}); mean|d| {float(mean.max()):.3e}"
+        f", float32 kernel's {float(mean32.min()):.3e}: {seen:.3g}x "
+        f"(limit {BF16_SEEN:.0f}x)" + (" in the worst column"
+                                      if scale == "columns" else ""))
+    if not (frac <= BF16_FLIP_FRAC and worst <= BF16_ULP
+            and seen >= BF16_SEEN):
+        raise RuntimeError(f"{name}: the bf16 branch disagrees with its "
+                           f"plain twin or does not round")
+    return float((got - plain).abs().max()) if got.numel() else 0.0
 
 
 def run_stages(torch, what, mod, stages, timed):
@@ -326,21 +414,37 @@ def rel_err(a, b):
                                1e-30)
 
 
-def check_stages(torch, FC, inputs, culled, timed):
+def check_stages(torch, FC, inputs, culled, timed, bf16=False):
     """Each CUDA stage of K1/K2 against its plain twin on the same inputs
     (the kernels' own intermediate state); with `timed`, each stage's
-    time and the block passes' time with the cull defeated. Returns the
+    time and (float32) the block passes' time with the cull defeated.
+    `bf16` runs the stages of the blend_bf16 branch, each product held by
+    check_bf16 beside the float32 stage on the same inputs. Returns the
     rows fwd_blocks staged in each block."""
     table, runs, count, geo, g_out, g_logt, logt, carry, live = inputs
-    delta, acc, kept = FC.fwd_blocks_cuda(table, runs, count, *geo)
-    S = FC.bwd_suffix_cuda(acc, carry, live, runs, g_out)
+    geo_b = (*geo, bf16)
+    delta, acc, kept, sacc = FC.fwd_blocks_cuda(table, runs, count, *geo_b)
+    S = FC.bwd_suffix_cuda(sacc, carry, live, runs, g_out, bf16)
+    bwd_args = (table, runs, live, g_out, g_logt, logt, carry, S)
+    if bf16:
+        f32 = {"acc": FC.fwd_blocks_cuda(table, runs, count, *geo)[1],
+               "S": FC.bwd_suffix_cuda(sacc, carry, live, runs, g_out),
+               "dtab": FC.bwd_blocks_cuda(*bwd_args, *geo)}
     torch.cuda.synchronize()
     e = max_err
     ex = lambda a, b: e(torch.exp(a), torch.exp(b))  # noqa: E731
+
+    def acc_errs(k, p):
+        if not bf16:
+            return {"acc": (e(k[1], p[1]), TOL_OUT)}
+        return {w: (check_bf16(torch, f"K1 fwd_blocks {w}", k[i], p[i],
+                               f32["acc"], TOL_OUT), None)
+                for w, i in (("acc", 1), ("sacc", 3))}
+
     stages = [
-        ("fwd_blocks", (table, runs, count, *geo),
+        ("fwd_blocks", (table, runs, count, *geo_b),
          lambda k, p: {"exp(delta)": (ex(k[0], p[0]), TOL_ALPHA),
-                       "acc": (e(k[1], p[1]), TOL_OUT),
+                       **acc_errs(k, p),
                        "rows kept differing": (e(k[2], p[2]), 0)}),
         ("fwd_scan", (delta, runs, count),
          lambda k, p: {"exp(carry)": (ex(k[0], p[0]), TOL_ALPHA),
@@ -348,54 +452,80 @@ def check_stages(torch, FC, inputs, culled, timed):
                        "alpha": (ex(k[2], p[2]), TOL_ALPHA)}),
         ("fwd_combine", (acc, carry, live, runs),
          lambda k, p: {"out": (e(k, p), TOL_OUT)}),
-        ("bwd_suffix", (acc, carry, live, runs, g_out),
-         lambda k, p: {"S / max|S|": (rel_err(k, p), TOL_DTAB_REL)}),
-        ("bwd_blocks", (table, runs, live, g_out, g_logt, logt, carry, S,
-                        *geo),
-         lambda k, p: {"dtab": (check_columns("bwd_blocks", k, p), None)}),
+        ("bwd_suffix", (sacc, carry, live, runs, g_out, bf16),
+         lambda k, p: {"S / max|S|": (
+             (check_bf16(torch, "K2 bwd_suffix S", k, p, f32["S"],
+                         TOL_DTAB_REL, "max"), None) if bf16
+             else (rel_err(k, p), TOL_DTAB_REL))}),
+        ("bwd_blocks", (*bwd_args, *geo_b),
+         lambda k, p: {"dtab": (
+             check_bf16(torch, "K2 bwd_blocks dtab", k, p, f32["dtab"],
+                        TOL_DTAB_REL, "columns") if bf16
+             else check_columns("bwd_blocks", k, p), None)}),
     ]
-    times = run_stages(torch, "K1/K2", FC, stages, timed)
-    if timed:
+    times = run_stages(torch, "K1/K2 bf16" if bf16 else "K1/K2", FC, stages,
+                       timed)
+    if timed and not bf16:
         cull_off(torch, FC, inputs, culled, (delta, acc, S), times)
     return kept
 
 
-def check_dense_stages(torch, C2, inputs, timed):
+def check_dense_stages(torch, C2, inputs, timed, bf16=False):
     """Each CUDA stage of K3/K4 against its plain twin on the same inputs
     (the kernels' own intermediate state): delta and acc of the chunks below
     ceil(count / B), which are all the chunk pass writes; the combine's log
     T, carries and nused exactly (the same deltas summed in the same
-    order); S of the chunks below nused. With `timed`, each stage's time."""
+    order); S of the chunks below nused. With `timed`, each stage's time.
+    `bf16` runs the stages of the blend_bf16 branch, each product held by
+    check_bf16 beside the float32 stage on the same inputs."""
     table, counts, tile_ids, geo, g_out, g_logt = inputs
     B = geo[-1]
+    geo_b = (*geo, bf16)
     nc = table.shape[1] // B
-    delta, acc = C2.fwd_chunks_cuda(table, counts, tile_ids, *geo)
+    delta, acc, sacc = C2.fwd_chunks_cuda(table, counts, tile_ids, *geo_b)
     _, logt, carries, nused = C2.fwd_combine_cuda(delta, acc, counts, B)
-    S = C2.bwd_suffix_cuda(acc, carries, nused, g_out)
+    S = C2.bwd_suffix_cuda(sacc, carries, nused, g_out, bf16)
+    bwd_args = (table, nused, tile_ids, g_out, g_logt, logt, carries, S)
+    if bf16:
+        f32 = {"acc": C2.fwd_chunks_cuda(table, counts, tile_ids, *geo)[1],
+               "S": C2.bwd_suffix_cuda(sacc, carries, nused, g_out),
+               "dtab": C2.bwd_chunks_cuda(*bwd_args, *geo)}
     torch.cuda.synchronize()
     chunk = torch.arange(nc, device=table.device)[None, :]
     done = chunk < C2.n_chunks(counts, B, nc)[:, None]
     used = chunk < nused[:, None]
     e = max_err
     differ = lambda a, b: int((a != b).sum())  # noqa: E731
+
+    def acc_errs(k, p):
+        if not bf16:
+            return {"acc": (e(k[1][done], p[1][done]), TOL_OUT)}
+        return {w: (check_bf16(torch, f"K3 fwd_chunks {w}", k[i][done],
+                               p[i][done], f32["acc"][done], TOL_OUT), None)
+                for w, i in (("acc", 1), ("sacc", 2))}
+
     stages = [
-        ("fwd_chunks", (table, counts, tile_ids, *geo),
+        ("fwd_chunks", (table, counts, tile_ids, *geo_b),
          lambda k, p: {"exp(delta)": (e(torch.exp(k[0][done]),
                                         torch.exp(p[0][done])), TOL_ALPHA),
-                       "acc": (e(k[1][done], p[1][done]), TOL_OUT)}),
+                       **acc_errs(k, p)}),
         ("fwd_combine", (delta, acc, counts, B),
          lambda k, p: {"out": (e(k[0], p[0]), TOL_OUT),
                        "log T differing": (differ(k[1], p[1]), 0),
                        "carries differing": (differ(k[2], p[2]), 0),
                        "nused differing": (differ(k[3], p[3]), 0)}),
-        ("bwd_suffix", (acc, carries, nused, g_out),
-         lambda k, p: {"S / max|S|": (rel_err(k[used], p[used]),
-                                      TOL_DTAB_REL)}),
-        ("bwd_chunks", (table, nused, tile_ids, g_out, g_logt, logt, carries,
-                        S, *geo),
-         lambda k, p: {"dtab": (check_columns("bwd_chunks", k, p), None)}),
+        ("bwd_suffix", (sacc, carries, nused, g_out, bf16),
+         lambda k, p: {"S / max|S|": (
+             (check_bf16(torch, "K4 bwd_suffix S", k[used], p[used],
+                         f32["S"][used], TOL_DTAB_REL, "max"), None) if bf16
+             else (rel_err(k[used], p[used]), TOL_DTAB_REL))}),
+        ("bwd_chunks", (*bwd_args, *geo_b),
+         lambda k, p: {"dtab": (
+             check_bf16(torch, "K4 bwd_chunks dtab", k, p, f32["dtab"],
+                        TOL_DTAB_REL, "columns") if bf16
+             else check_columns("bwd_chunks", k, p), None)}),
     ]
-    run_stages(torch, "K3/K4", C2, stages, timed)
+    run_stages(torch, "K3/K4 bf16" if bf16 else "K3/K4", C2, stages, timed)
     return int(done.sum())
 
 
@@ -412,7 +542,7 @@ def cull_off(torch, FC, inputs, culled, state, times):
     nc[culled.reshape(-1), 5] = FC.CULL_LOG_OP + 0.01
     bwd_args = (runs, live, g_out, g_logt, logt, carry, S, *geo)
     dtab = FC.bwd_blocks_cuda(table, *bwd_args)
-    d_nc, a_nc, k_nc = FC.fwd_blocks_cuda(nc, runs, count, *geo)
+    d_nc, a_nc, k_nc, _ = FC.fwd_blocks_cuda(nc, runs, count, *geo)
     dtab_nc = FC.bwd_blocks_cuda(nc, *bwd_args)
     torch.cuda.synchronize()
     full = bool((k_nc[count > 0] == B).all())
@@ -533,6 +663,35 @@ def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     if not timed:
         return errs, None
 
+    # the blend_bf16 branch (N5) at the timed shape: K1/K2, then their
+    # stages, against the plain twins
+    fwd16 = lambda: FC.flat_composite_fwd_cuda(  # noqa: E731
+        table, runs, count, *geo, blend_bf16=True)
+    fwd16_p = lambda: FC.flat_composite_fwd_plain(  # noqa: E731
+        table, runs, count, *geo, blend_bf16=True)
+    o16, lt16, c16, a16, lv16 = fwd16()
+    torch.cuda.synchronize()
+    o16_p, lt16_p, _, _, lv16_p = fwd16_p()
+    err_a16 = max_err(torch.exp(lt16), torch.exp(lt16_p))
+    log(f"K1 bf16 max|d|: alpha {err_a16:.3e} (limit {TOL_ALPHA:.0e}); live "
+        f"flags differing {int((lv16 != lv16_p).sum())}")
+    if not (err_a16 <= TOL_ALPHA and torch.equal(lv16, lv16_p)):
+        raise RuntimeError("K1's bf16 branch disagrees with its plain version")
+    err16 = max(err_a16, check_bf16(torch, "K1 out", o16, o16_p, out,
+                                    TOL_OUT))
+    bwd16_args = (table, runs, g_out, g_logt, lt16, c16, a16, lv16, tx, ts, B)
+    bwd16 = lambda: FC.flat_composite_bwd_cuda(  # noqa: E731
+        *bwd16_args, blend_bf16=True)
+    bwd16_p = lambda: FC.flat_composite_bwd_plain(  # noqa: E731
+        *bwd16_args, blend_bf16=True)
+    d16 = bwd16()
+    d16_f32 = FC.flat_composite_bwd_cuda(*bwd16_args)
+    torch.cuda.synchronize()
+    errs16 = (err16, check_bf16(torch, "K2 dtab", d16, bwd16_p(), d16_f32,
+                                TOL_DTAB_REL, "columns"))
+    check_stages(torch, FC, (table, runs, count, (tx, ts, B), g_out, g_logt,
+                             lt16, c16, lv16), None, timed, bf16=True)
+
     # work these inputs need: the pairs of the composited blocks that the
     # cull cannot prove zero (PR 1-2's bound counted every pair of them)
     live = live.bool()
@@ -553,11 +712,13 @@ def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
         f"of them not culled (the bound's work); pairs of dead slots "
         f"{int(dead.sum())}; over all {ref_pairs} pairs (PR 1-2's bound) "
         f"K1 {ref[0]:.4f}, K2 {ref[1]:.4f} ms")
-    return errs, timed_entries("fusionsense_tpu_torch/csrc/flat_composite.cu", [
+    entries = timed_entries("fusionsense_tpu_torch/csrc/flat_composite.cu", [
         ("flat_composite_fwd (K1)", "fusionsense_tpu/render/pallas_flat.py:52",
          fwd, fwd_p, fwd_bound, fwd_kind),
         ("flat_composite_bwd (K2)", "fusionsense_tpu/render/pallas_flat.py:93",
          bwd, bwd_p, bwd_bound, bwd_kind)])
+    time_bf16(entries, ((fwd16, fwd16_p), (bwd16, bwd16_p)), errs16)
+    return errs, entries
 
 
 def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
@@ -635,6 +796,36 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     if not timed:
         return errs, None
 
+    # the blend_bf16 branch (N5) at the timed shape: K3/K4, then their
+    # stages, against the plain twins
+    fwd16 = lambda: C2.composite2_fwd_cuda(  # noqa: E731
+        table, counts, tile_ids, tx, ts, B, blend_bf16=True)
+    fwd16_p = lambda: C2.composite2_fwd_plain(  # noqa: E731
+        table, counts, tile_ids, tx, ts, B, blend_bf16=True)
+    o16, lt16, c16, n16, a16 = fwd16()
+    torch.cuda.synchronize()
+    o16_p, lt16_p, _, n16_p, _ = fwd16_p()
+    err_a16 = max_err(torch.exp(lt16), torch.exp(lt16_p))
+    log(f"K3 bf16 max|d|: alpha {err_a16:.3e} (limit {TOL_ALPHA:.0e}); "
+        f"nused equal {bool(torch.equal(n16, n16_p))}")
+    if not (err_a16 <= TOL_ALPHA and torch.equal(n16, n16_p)):
+        raise RuntimeError("K3's bf16 branch disagrees with its plain version")
+    err16 = max(err_a16, check_bf16(torch, "K3 out", o16, o16_p, out,
+                                    TOL_OUT))
+    bwd16_args = (table, n16, tile_ids, g_out, g_logt, lt16, c16, a16, tx, ts,
+                  B)
+    bwd16 = lambda: C2.composite2_bwd_cuda(  # noqa: E731
+        *bwd16_args, blend_bf16=True)
+    bwd16_p = lambda: C2.composite2_bwd_plain(  # noqa: E731
+        *bwd16_args, blend_bf16=True)
+    d16 = bwd16()
+    d16_f32 = C2.composite2_bwd_cuda(*bwd16_args)
+    torch.cuda.synchronize()
+    errs16 = (err16, check_bf16(torch, "K4 dtab", d16, bwd16_p(), d16_f32,
+                                TOL_DTAB_REL, "columns"))
+    check_dense_stages(torch, C2, (table, counts, tile_ids, (tx, ts, B),
+                                   g_out, g_logt), timed, bf16=True)
+
     # work these inputs need: the pairs of the chunks composited that the
     # flat compositor's row cull cannot prove zero (PR 2's bound counted
     # every pair of them)
@@ -657,13 +848,15 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     log(f"composited chunks {chunks}/{T * nc}: {ref_pairs} pairs, "
         f"{live_pairs} of them not culled (the bound's work); over all "
         f"{ref_pairs} (PR 2's bound) K3 {ref[0]:.4f}, K4 {ref[1]:.4f} ms")
-    return errs, timed_entries("fusionsense_tpu_torch/csrc/composite2.cu", [
+    entries = timed_entries("fusionsense_tpu_torch/csrc/composite2.cu", [
         ("composite2_fwd (K3)",
          "fusionsense_tpu/render/pallas_composite2.py:79",
          fwd, fwd_p, fwd_bound, fwd_kind),
         ("composite2_bwd (K4)",
          "fusionsense_tpu/render/pallas_composite2.py:128",
          bwd, bwd_p, bwd_bound, bwd_kind)])
+    time_bf16(entries, ((fwd16, fwd16_p), (bwd16, bwd16_p)), errs16)
+    return errs, entries
 
 
 def profile_steps(torch, tr, name, step_ms, steps=5):
@@ -761,7 +954,7 @@ def fused_config(cfg):
 
 
 def fused_path(torch, name, cfg, cams, data, init, dev, counters, kernels):
-    """run_fused against Trainer.run on one configuration (phase 11): train
+    """run_fused against Trainer.run on one configuration (phase 12): train
     eagerly to FUSED_FROM, copy the trainer, then (a) Trainer.run and (b)
     run_fused + sync_policies for FUSED_INTERVALS intervals of 50, refines
     at every interval end; n_alive and the alive masks equal, means within
@@ -1096,16 +1289,89 @@ def fusionsense_path(torch, cams, data, init, dev, counters):
         f"|delta| {dmax:.3e}")
     if not (all(math.isfinite(x) for x in losses) and dmax > 0):
         raise RuntimeError("camera optimisation / SDF loss failed")
-    return entries, launches
+    return entries, launches, tr
+
+
+def extract_counted(torch, tr, method, cams, counters, out_dir, kernel, res):
+    """mesh_export.extract on a trainer's Gaussians at its own render config
+    (grown K or pair budget, cover window), timed with CUDA
+    synchronisation, the launch counters zeroed just before and read just
+    after. A method that renders must launch `kernel` at least once per
+    view and its plain twin never; every method must give a non-empty,
+    finite mesh that its PLY holds. Returns (verts, faces, seconds,
+    launches)."""
+    import numpy as np
+
+    from fusionsense_tpu_torch.mesh_export import RENDERING, extract
+    from fusionsense_tpu_torch.train.trainer import patched_cfg
+    from fusionsense_tpu_torch.utils.ply import read_ply
+
+    rc = patched_cfg(tr.cfg, tr.tile_capacity, tr.cover_tiles).model.rasterize
+    for c in counters:
+        c.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verts, faces, path = extract(method, tr.gaussians, cams, rc, out_dir,
+                                 resolution=res)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    ply = read_ply(path)
+    ok = (len(faces) > 0 and np.isfinite(verts).all()
+          and len(ply["points"]) == len(verts)
+          and len(ply["faces"]) == len(faces))
+    views = cams.viewmat.shape[0]
+    renders = method in RENDERING
+    if not ok or launches[f"{kernel}_plain"] or (
+            renders and launches[kernel] < views):
+        raise RuntimeError(f"mesh {method}: {len(verts)} verts, "
+                           f"{len(faces)} faces, PLY {path.name} holds "
+                           f"{len(ply['points'])}; launches {launches}")
+    return verts, faces, secs, launches
+
+
+def mesh_path(torch, tr, tr_flat, cams, counters, card):
+    """The mesh phase: mesh_export.extract with each of its five methods at
+    their defaults on the fusionsense path's trained model (renders through
+    K3), then tsdf on the flat path's model (K1); seconds, verts, faces and
+    launches per method, and the tsdf meshes' chamfer x 1e3 against the GT
+    sphere. Returns the K1 and K3 launches of the phase."""
+    from fusionsense_tpu_torch.data.synthetic import sphere_gt
+    from fusionsense_tpu_torch.eval.chamfer import chamfer_eval
+    from fusionsense_tpu_torch.mesh_export import METHODS
+
+    gt = sphere_gt(N_SPHERE)
+    out = SCRATCH / "mesh"
+    total = {"flat_composite_fwd": 0, "composite2_fwd": 0}
+    rows = []
+    runs = [(tr, m, "composite2_fwd", "fusionsense") for m in METHODS]
+    runs.append((tr_flat, "tsdf", "flat_composite_fwd", "flat"))
+    log(f"mesh phase at resolution {MESH_RES} ({card}): fusionsense model "
+        f"{int(tr.gaussians.num_alive)} alive (capacity "
+        f"{tr.gaussians.capacity}, K {tr.tile_capacity}), flat model "
+        f"{int(tr_flat.gaussians.num_alive)} alive")
+    for trainer, method, kernel, model in runs:
+        verts, faces, secs, launches = extract_counted(
+            torch, trainer, method, cams, counters, out / model, kernel,
+            MESH_RES)
+        total[kernel] += launches[kernel]
+        cham = ("" if method != "tsdf" else ", chamfer x1e3 "
+                f"{chamfer_eval(verts, gt)['chamfer_x1e3']:.4f} vs the GT "
+                "sphere")
+        log(f"  mesh {method:12s} ({model} model): {secs:8.3f} s, "
+            f"{len(verts)} verts, {len(faces)} faces, {launches[kernel]} "
+            f"{kernel} launches{cham}")
+    return total
 
 
 def installations():
-    """Whether Pillow, scipy and scikit-learn import here (the port's path
-    needs Pillow and scipy)."""
+    """Whether Pillow, scipy, scikit-learn and imageio import here (the
+    port's path needs Pillow and scipy; fs-render's --video, not ported
+    yet, would need imageio)."""
     import importlib
 
     found = {}
-    for name in ("PIL", "scipy", "sklearn"):
+    for name in ("PIL", "scipy", "sklearn", "imageio"):
         try:
             importlib.import_module(name)
             found[name] = True
@@ -1159,15 +1425,20 @@ def pipeline_path(torch, dev, counters, card):
     the blob capture written on the card, its seed cloud dropped so the
     visual hull and the seed cloud from depth both run; then
     cli.train.main with the pallas backend (K3/K4) for PIPE_ITERS steps and
-    a second main resumed from the mid-run checkpoint. Every artifact is
-    read back through the port's own readers; then K3/K4 are held against
-    their plain versions on the first run's trained state. Returns the
-    K3/K4 launches of both runs and those checks' errors."""
+    its default meshes, and a second main resumed from the mid-run
+    checkpoint. Every artifact is read back through the port's own
+    readers; then K3/K4 are held against their plain versions on the first
+    run's trained state, and fs-mesh and fs-eval run on its last
+    checkpoint. Returns the K3/K4 launches of both runs (and, under
+    cli_composite2_fwd, K3's of fs-mesh and fs-eval) and those checks'
+    errors."""
     import shutil
 
     import numpy as np
 
     from fusionsense_tpu_torch import pipeline as P
+    from fusionsense_tpu_torch.cli.eval import main as fs_eval
+    from fusionsense_tpu_torch.cli.mesh import main as fs_mesh
     from fusionsense_tpu_torch.cli.train import main as fs_train
     from fusionsense_tpu_torch.data.fixture import write_blob_scene
     from fusionsense_tpu_torch.data.image_io import read_image
@@ -1198,12 +1469,13 @@ def pipeline_path(torch, dev, counters, card):
     saved = [(P.Trainer, "run", run)] + _timed_calls(torch, [
         (P, "parse_transforms"), (P, "load_train_data"), (P, "visual_hull"),
         (P, "seed_pcd_from_depths"), (P, "init_from_points"),
-        (P, "export_high_grad_pcd"), (P, "evaluate"), (P.Trainer, "run")],
-        times, results)
+        (P, "export_high_grad_pcd"), (P, "evaluate"), (P.Trainer, "run"),
+        (P.ReconstructionPipeline, "extract_mesh")], times, results)
+    # the CLI's default --mesh (tsdf sugar-coarse)
     args = ["--load-touches", "--backend", "pallas", "--iterations",
             str(PIPE_ITERS), "--warmup-length", str(PIPE_WARMUP),
             "--stop-split-at", str(PIPE_STOP_SPLIT), "--add-touch-at",
-            str(PIPE_TOUCH_AT), "--steps-per-save", str(PIPE_SAVE), "--mesh"]
+            str(PIPE_TOUCH_AT), "--steps-per-save", str(PIPE_SAVE)]
     out = out_root / "dn_splatter"
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -1225,7 +1497,7 @@ def pipeline_path(torch, dev, counters, card):
         args[args.index("--iterations") + 1] = str(PIPE_RESUME_ITERS)
         pipe2 = fs_train(["--data", str(scene), "--output-dir", str(out_root),
                           "--experiment-name", "resume", "--resume",
-                          str(resume), *args], device=dev)
+                          str(resume), *args, "--mesh"], device=dev)
         torch.cuda.synchronize()
         n_high2 = results["export_high_grad_pcd"]
     finally:
@@ -1257,6 +1529,7 @@ def pipeline_path(torch, dev, counters, card):
         "parse+load": first["parse_transforms"] + first["load_train_data"],
         "hull": first["visual_hull"], "seed cloud": first["seed_pcd_from_depths"],
         "train": first["run"], "high-grad export": first["export_high_grad_pcd"],
+        "mesh (tsdf, sugar-coarse)": first["extract_mesh"],
         "eval": first["evaluate"]}
     mean = res["mean"]
     log(f"pipeline stages (s): "
@@ -1301,6 +1574,49 @@ def pipeline_path(torch, dev, counters, card):
                            f"{entries[-1]}, want ({PIPE_SAVE}, {frozen_end})")
     if not np.isfinite(high["points"]).all():
         raise RuntimeError("pipeline: non-finite high-grad points")
+    meshes = {m: read_ply(out / f) for m, f in (
+        ("tsdf", "mesh_tsdf.ply"),
+        ("sugar-coarse", "mesh_sugar-coarse_level_0.3.ply"))}
+    log("pipeline meshes (the CLI's default --mesh): " + ", ".join(
+        f"{m} {len(v['points'])} verts, {len(v['faces'])} faces"
+        for m, v in meshes.items()))
+    if not all(len(v["faces"]) and np.isfinite(v["points"]).all()
+               for v in meshes.values()):
+        raise RuntimeError("pipeline: a mesh of the default --mesh is empty")
+
+    # fs-mesh and fs-eval on the saved checkpoint, each rendering every
+    # train view through K3, never its plain twin
+    ckpt = str(out / f"ckpt_{PIPE_ITERS}")
+    views = pipe.camera.viewmat.shape[0]
+
+    def counted(fn, argv):
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(argv, device=dev)
+        torch.cuda.synchronize()
+        n = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+        if n["composite2_fwd"] < views or n["composite2_fwd_plain"]:
+            raise RuntimeError(f"pipeline: {fn.__module__} missed K3 or ran "
+                               f"its plain version: {n}")
+        return res, time.perf_counter() - t0, n["composite2_fwd"]
+
+    ((mv, mf, mpath),), mesh_s, mesh_k3 = counted(fs_mesh, [
+        "tsdf", "--checkpoint", ckpt, "--data", str(scene), "--output-dir",
+        str(out_root / "fs_mesh"), "--backend", "pallas", "--tile-capacity",
+        str(pipe.trainer.tile_capacity)])
+    ev, eval_s, eval_k3 = counted(fs_eval, [
+        "--checkpoint", ckpt, "--data", str(scene), "--output-path",
+        str(out_root / "fs_eval.json"), "--backend", "pallas"])
+    log(f"fs-mesh tsdf: {mesh_s:.3f} s, {len(mv)} verts, {len(mf)} faces -> "
+        f"{mpath.name}, K3 launches {mesh_k3}; fs-eval: {eval_s:.3f} s, K3 "
+        f"launches {eval_k3}, step {ev['step']}, "
+        + ", ".join(f"{k} {ev['mean'][k]:.4f}" for k in PIPE_METRICS))
+    if not (len(mf) and np.isfinite(mv).all() and ev["step"] == PIPE_ITERS
+            and all(math.isfinite(v) for v in ev["mean"].values())):
+        raise RuntimeError("pipeline: fs-mesh or fs-eval failed")
+    launches["cli_composite2_fwd"] = mesh_k3 + eval_k3
     if not (n_high2 > 0 and len(high2["points"]) == n_high2
             and np.isfinite(high2["points"]).all() and (clusters >= 0).all()
             and ranks.tolist() == list(range(len(clusters)))):
@@ -1393,32 +1709,41 @@ def main():
         k["launches"] = launches[f"composite2_{key}"]
         k["max_abs_err"] = max(errs0[key], errs1[key])
     profile_steps(torch, tr_d, "dense", ms_step)
-    del tr, tr_d
+    del tr_d
 
     # 8. the fusionsense path: the whole schedule, K3/K4 at the grown K
-    fs_kernels, fs_launches = fusionsense_path(torch, cams, data, init_fs,
-                                               dev, (FC, C2))
+    fs_kernels, fs_launches, tr_fs = fusionsense_path(torch, cams, data,
+                                                      init_fs, dev, (FC, C2))
 
-    # 9. fs-train's default backend, jax (the plain compositor)
+    # 9. the mesh phase: five methods on the fusionsense model (K3), tsdf
+    # on the flat model (K1)
+    mesh_launches = mesh_path(torch, tr_fs, tr, cams, (FC, C2), card)
+    del tr, tr_fs
+
+    # 10. fs-train's default backend, jax (the plain compositor)
     jax_backend_path(torch, cams, data, init_jax, dev, (FC, C2), card)
 
-    # 10. fs-train end to end from a capture on disk, through K3/K4
+    # 11. fs-train end to end from a capture on disk, through K3/K4, with
+    # its default meshes, then fs-mesh and fs-eval
     pipe_launches, pipe_errs = pipeline_path(torch, dev, (FC, C2), card)
-    # 11. fused refine intervals as CUDA graph replays, flat and dense
+    # 12. fused refine intervals as CUDA graph replays, flat and dense
     fused_flat = fused_path(torch, "flat", cfg, cams, data, init_fused[0],
                             dev, (FC, C2), flat_names)
     fused_dense = fused_path(torch, "dense", dense_config(), cams, data,
                              init_fused[1], dev, (FC, C2), dense_names)
     for k, key in zip(kernels, ("fwd", "bwd")):
         k["launches"] += fused_flat[f"flat_composite_{key}"]
+    kernels[0]["launches"] += mesh_launches["flat_composite_fwd"]
     for k, d, key in zip(fs_kernels, dense_kernels, ("fwd", "bwd")):
         k["launches"] = (d["launches"] + fs_launches[f"composite2_{key}"]
                          + pipe_launches[f"composite2_{key}"]
                          + fused_dense[f"composite2_{key}"])
         k["max_abs_err"] = max(k["max_abs_err"], d["max_abs_err"],
                                pipe_errs[key])
+    fs_kernels[0]["launches"] += (mesh_launches["composite2_fwd"]
+                                  + pipe_launches["cli_composite2_fwd"])
 
-    # 12. results
+    # 13. results
     print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

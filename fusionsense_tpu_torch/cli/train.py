@@ -1,12 +1,13 @@
 """fs-train in the port: end-to-end reconstruction from a capture on disk.
 
-    python -m fusionsense_tpu_torch.cli.train --data <scene> --mesh
+    python -m fusionsense_tpu_torch.cli.train --data <scene>
 
 The flags, their defaults and choices are those of fusionsense_tpu's
-fs-train. The run is on the card. Options whose code is not ported yet
-raise before any training, naming their ROADMAP item: a mesh method in
---mesh (A14; its default, tsdf and sugar-coarse, included, so pass an empty
---mesh), --device-mesh (A18) and --viewer (A19).
+fs-train: after training, the meshes of --mesh (tsdf and sugar-coarse by
+default; an empty --mesh extracts none) go to the output directory, then
+the train split is evaluated. The run is on the card. Options whose code
+is not ported yet raise before any training, naming their ROADMAP item:
+--device-mesh (A18) and --viewer (A19).
 """
 from __future__ import annotations
 
@@ -49,8 +50,7 @@ def build_parser():
                         "(restores camera-optimizer + adaptive policy state)")
     p.add_argument("--scan-chunk", type=int, default=100)
     p.add_argument("--mesh", nargs="*", default=["tsdf", "sugar-coarse"],
-                   help="mesh methods to extract after training (not ported: "
-                        "pass an empty --mesh)")
+                   help="mesh methods to extract after training")
     p.add_argument("--skip-eval", action="store_true")
     p.add_argument("--viewer", action="store_true",
                    help="serve the live splat viewer while training (not "
@@ -66,10 +66,6 @@ def main(argv=None, device=None):
     """Parse argv, train, evaluate; returns the pipeline. `device` is where
     the run goes (the card by default; the tests pass "cpu")."""
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh {' '.join(args.mesh)}: mesh extraction is not ported "
-            "(ROADMAP A14); pass an empty --mesh")
 
     from fusionsense_tpu_torch.config import (
         ExperimentConfig, LossConfig, ModelConfig, TrainConfig,
@@ -116,6 +112,9 @@ def main(argv=None, device=None):
     )
     pipe = ReconstructionPipeline(cfg, device=device)
     pipe.train()
+    for method in args.mesh:
+        verts, faces, path = pipe.extract_mesh(method)
+        print(f"mesh[{method}]: {len(verts)} verts -> {path}")
     if not args.skip_eval:
         res = pipe.evaluate("train")
         print(json.dumps(res["mean"], indent=2))

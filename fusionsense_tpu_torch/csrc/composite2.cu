@@ -54,6 +54,16 @@
 // an offset slice. Each chunk's rows (B x (8 + C) floats, 8 KB at C = 8)
 // are staged in shared memory and read as broadcasts.
 //
+// blend_bf16 (the reference's bf16 blend products; composite_common.cuh
+// states what is rounded) is a template flag of fwd_chunks, bwd_suffix
+// (which rounds g_out, the operand of q) and bwd_chunks; the entry points
+// take it as an int and dispatch both instantiations. fwd_chunks rounds w
+// as the chunk forms it, from T = 1: the reference rounds the w it forms
+// from the tile's running T, so the two can differ by one bf16 ulp of w.
+// Under blend_bf16 fwd_chunks also writes sacc (T, K/B, C, P), the chunk's
+// blend with w left float32, and bwd_suffix reads it in place of acc: the
+// reference's suffix sums w * q with w float32.
+//
 // Plain C entry points (bound with ctypes) launch on the caller's stream
 // and return cudaGetLastError().
 
@@ -72,12 +82,13 @@ __device__ __forceinline__ int chunks_of(const int* counts, int t, int B,
   return min(max((counts[t] + B - 1) / B, 0), nc);
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void fwd_chunks_kernel(const float* __restrict__ table,
                                   const int* __restrict__ counts,
                                   const int* __restrict__ tile_ids,
                                   float* __restrict__ delta,
-                                  float* __restrict__ acc_out, int tiles_x,
+                                  float* __restrict__ acc_out,
+                                  float* __restrict__ sacc_out, int tiles_x,
                                   int tile_size, int K, int B) {
   constexpr int W = 8 + C;
   extern __shared__ float s_tab[];   // B * W
@@ -91,16 +102,19 @@ __global__ void fwd_chunks_kernel(const float* __restrict__ table,
                  p, P);
   __syncthreads();
   float log_t = 0.0f;
-  float acc[C];
+  float acc[C], sacc[C];
 #pragma unroll
-  for (int ch = 0; ch < C; ++ch) acc[ch] = 0.0f;
-  fs::composite_block<C>(s_tab, B,
+  for (int ch = 0; ch < C; ++ch) acc[ch] = sacc[ch] = 0.0f;
+  fs::composite_block<C, BF16>(s_tab, B,
                          fs::pixel_of(tile_ids[t], tiles_x, tile_size, p),
-                         log_t, acc);
+                         log_t, acc, sacc);
   const size_t tc = (size_t)t * nc + c;
   delta[tc * P + p] = log_t;
 #pragma unroll
-  for (int ch = 0; ch < C; ++ch) acc_out[(tc * C + ch) * P + p] = acc[ch];
+  for (int ch = 0; ch < C; ++ch) {
+    acc_out[(tc * C + ch) * P + p] = acc[ch];
+    if constexpr (BF16) sacc_out[(tc * C + ch) * P + p] = sacc[ch];
+  }
 }
 
 template <int C>
@@ -145,7 +159,7 @@ __global__ void fwd_combine_kernel(const float* __restrict__ delta,
   if (p == 0) nused[t] = c;
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void bwd_suffix_kernel(const float* __restrict__ acc,
                                   const float* __restrict__ carries,
                                   const int* __restrict__ nused,
@@ -157,7 +171,8 @@ __global__ void bwd_suffix_kernel(const float* __restrict__ acc,
   const int n = min(max(nused[t], 0), nc);
   float g[C];
 #pragma unroll
-  for (int ch = 0; ch < C; ++ch) g[ch] = g_out[((size_t)t * C + ch) * P + p];
+  for (int ch = 0; ch < C; ++ch)
+    g[ch] = fs::blend_operand<BF16>(g_out[((size_t)t * C + ch) * P + p]);
   float s = 0.0f;
   for (int c = n - 1; c >= 0; --c) {   // last chunk first, as the reference
     const size_t tc = (size_t)t * nc + c;
@@ -169,7 +184,7 @@ __global__ void bwd_suffix_kernel(const float* __restrict__ acc,
   }
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void bwd_chunks_kernel(const float* __restrict__ table,
                                   const int* __restrict__ nused,
                                   const int* __restrict__ tile_ids,
@@ -209,7 +224,7 @@ __global__ void bwd_chunks_kernel(const float* __restrict__ table,
   const float L = (c + 1 < n) ? carries[(tc + 1) * P + p] : logt_fin;
   const float s = S[tc * P + p];
   __syncthreads();
-  fs::block_backward<C>(s_tab, s_part, dst, B,
+  fs::block_backward<C, BF16>(s_tab, s_part, dst, B,
                         fs::pixel_of(tile_ids[t], tiles_x, tile_size, p), g,
                         glt, expf(logt_fin), L, s);
 }
@@ -218,15 +233,15 @@ __global__ void bwd_chunks_kernel(const float* __restrict__ table,
 
 extern "C" int fs_dense_fwd_chunks(const float* table, const int* counts,
                                    const int* tile_ids, float* delta,
-                                   float* acc, int num_tiles, int tiles_x,
-                                   int tile_size, int K, int B, int C,
-                                   void* stream) {
+                                   float* acc, float* sacc, int num_tiles,
+                                   int tiles_x, int tile_size, int K, int B,
+                                   int C, int bf16, void* stream) {
   if (C != 8 || (B * (8 + C)) % 4) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0 || K == 0) return 0;
-  fwd_chunks_kernel<8><<<num_tiles * (K / B), tile_size * tile_size,
-                         (size_t)B * (8 + C) * sizeof(float),
-                         (cudaStream_t)stream>>>(
-      table, counts, tile_ids, delta, acc, tiles_x, tile_size, K, B);
+  auto kernel = bf16 ? fwd_chunks_kernel<8, true> : fwd_chunks_kernel<8, false>;
+  kernel<<<num_tiles * (K / B), tile_size * tile_size,
+           (size_t)B * (8 + C) * sizeof(float), (cudaStream_t)stream>>>(
+      table, counts, tile_ids, delta, acc, sacc, tiles_x, tile_size, K, B);
   return (int)cudaGetLastError();
 }
 
@@ -245,10 +260,11 @@ extern "C" int fs_dense_fwd_combine(const float* delta, const float* acc,
 extern "C" int fs_dense_bwd_suffix(const float* acc, const float* carries,
                                    const int* nused, const float* g_out,
                                    float* S, int num_tiles, int P, int nc,
-                                   int C, void* stream) {
+                                   int C, int bf16, void* stream) {
   if (C != 8) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0) return 0;
-  bwd_suffix_kernel<8><<<num_tiles, P, 0, (cudaStream_t)stream>>>(
+  auto kernel = bf16 ? bwd_suffix_kernel<8, true> : bwd_suffix_kernel<8, false>;
+  kernel<<<num_tiles, P, 0, (cudaStream_t)stream>>>(
       acc, carries, nused, g_out, S, nc);
   return (int)cudaGetLastError();
 }
@@ -259,14 +275,14 @@ extern "C" int fs_dense_bwd_chunks(const float* table, const int* nused,
                                    const float* carries, const float* S,
                                    float* dtab, int num_tiles, int tiles_x,
                                    int tile_size, int K, int B, int C,
-                                   void* stream) {
+                                   int bf16, void* stream) {
   if (C != 8 || (B * (8 + C)) % 4) return (int)cudaErrorInvalidValue;
   if (num_tiles == 0 || K == 0) return 0;
   const int P = tile_size * tile_size;
   const size_t smem =
       ((size_t)B * (8 + C) + (size_t)fs::reduce_floats(P, C)) * sizeof(float);
-  bwd_chunks_kernel<8><<<num_tiles * (K / B), P, smem,
-                         (cudaStream_t)stream>>>(
+  auto kernel = bf16 ? bwd_chunks_kernel<8, true> : bwd_chunks_kernel<8, false>;
+  kernel<<<num_tiles * (K / B), P, smem, (cudaStream_t)stream>>>(
       table, nused, tile_ids, g_out, g_logt, logt, carries, S, dtab, tiles_x,
       tile_size, K, B);
   return (int)cudaGetLastError();

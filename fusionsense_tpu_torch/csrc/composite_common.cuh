@@ -8,8 +8,19 @@
 // fusionsense_tpu/render/pallas_composite2.py::_alpha_of_chunk), the forward
 // walk over one staged block and the backward walk with its per-pair sums
 // over the tile's pixels are written once, here.
+//
+// The walks take a compile-time flag BF16, the counterpart of the Pallas
+// kernels' blend_bf16 branch: each operand of the blend products (forward
+// acc = chan^T w; backward q = chan g_out and d chan = w g_out^T) is
+// rounded to bfloat16 (round to nearest even) and back, and the products
+// are accumulated in float32, as jnp.dot(..., preferred_element_type=
+// float32) does on bf16 operands (the product of two bf16 values is exact
+// in float32). w is rounded after it is formed as alpha * T_excl; the alpha
+// math, log T, the suffix (a sum of w * q with w float32, as in the
+// reference's backward) and every other term stay float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fs {
@@ -49,6 +60,13 @@ __device__ __forceinline__ float alpha_of(const float* row, Pixel px,
   return (alpha_raw < kAlphaMin) ? 0.0f : alpha_raw;
 }
 
+// x rounded to bfloat16 (nearest even) and back when BF16, else x.
+template <bool BF16>
+__device__ __forceinline__ float blend_operand(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
 __device__ __forceinline__ void stage_rows(float* s_tab, const float* src,
                                            int n, int tid, int nthreads) {
   for (int i = tid; i < n; i += nthreads) s_tab[i] = src[i];
@@ -61,11 +79,15 @@ __host__ __device__ constexpr int reduce_floats(int P, int C) {
 
 // Forward over one staged block of B rows at this thread's pixel: blends
 // the channels into acc and advances log T by the block's sum of
-// log1p(-alpha) (the reference's prefix matmul, walked in order).
-template <int C>
+// log1p(-alpha) (the reference's prefix matmul, walked in order). Under
+// BF16 it also sums sacc, the blend with w left float32 (the channels
+// rounded): the backward's suffix S is a sum of w * q with w float32 in the
+// reference, and reads sacc instead of acc.
+template <int C, bool BF16>
 __device__ __forceinline__ void composite_block(const float* s_tab, int B,
                                                 Pixel px, float& log_t,
-                                                float (&acc)[C]) {
+                                                float (&acc)[C],
+                                                float (&sacc)[C]) {
   constexpr int W = 8 + C;
   float cum = 0.0f;
   for (int j = 0; j < B; ++j) {
@@ -75,9 +97,14 @@ __device__ __forceinline__ void composite_block(const float* s_tab, int B,
     const float alpha = alpha_of(row, px, &dx, &dy, &alive);
     const float lg = log1pf(-alpha);
     cum += lg;
-    const float w = alpha * expf(log_t + cum - lg);
+    const float wf = alpha * expf(log_t + cum - lg);
+    const float w = blend_operand<BF16>(wf);
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] += row[8 + c] * w;
+    for (int c = 0; c < C; ++c) {
+      const float ch = blend_operand<BF16>(row[8 + c]);
+      acc[c] += ch * w;
+      if constexpr (BF16) sacc[c] += ch * wf;
+    }
   }
   log_t += cum;
 }
@@ -126,7 +153,7 @@ __device__ __forceinline__ float warp_sums16(float (&v)[16], int lane) {
 // sums kGroup pairs at a time and writes the block's B gradient rows to
 // dst: d mx, d my, d ca, d cb, d cc, d log_op, |d mx|, |d my|, d chan.
 // Ends on a barrier, so s_tab may be restaged at once.
-template <int C>
+template <int C, bool BF16>
 __device__ __forceinline__ float block_backward(
     const float* s_tab, float* s_part, float* dst, int B, Pixel px,
     const float (&g)[C], float glt, float t_fin, float L, float S) {
@@ -139,6 +166,9 @@ __device__ __forceinline__ float block_backward(
   const int warp = p >> 5;
   const int nwarps = P >> 5;
   float suffix_acc = S;
+  float gb[C];   // the cotangent as the blend products take it
+#pragma unroll
+  for (int c = 0; c < C; ++c) gb[c] = blend_operand<BF16>(g[c]);
 
   for (int g0 = B - kGroup; g0 >= 0; g0 -= kGroup) {
     for (int jj = kGroup - 1; jj >= 0; --jj) {
@@ -152,7 +182,7 @@ __device__ __forceinline__ float block_backward(
       const float w = alpha * t_excl;
       float q = 0.0f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) q += row[8 + c] * g[c];
+      for (int c = 0; c < C; ++c) q += blend_operand<BF16>(row[8 + c]) * gb[c];
       const float a = w * q;
       const float suffix = suffix_acc;
       suffix_acc += a;
@@ -169,8 +199,9 @@ __device__ __forceinline__ float block_backward(
         v[3] = d_power * (-dx * dy);
         v[4] = d_power * (-0.5f * dy * dy);
         v[5] = d_power;
+        const float wb = blend_operand<BF16>(w);
 #pragma unroll
-        for (int c = 0; c < C; ++c) v[6 + c] = w * g[c];
+        for (int c = 0; c < C; ++c) v[6 + c] = wb * gb[c];
 #pragma unroll
         for (int k = NRED; k < 16; ++k) v[k] = 0.0f;
         sum = warp_sums16(v, lane);

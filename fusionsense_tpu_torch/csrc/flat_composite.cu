@@ -66,6 +66,16 @@
 // count of kept rows against the plain test, and times both block passes
 // again with the cull defeated: the difference is what the cull saves.
 //
+// blend_bf16 (the reference's bf16 blend products; composite_common.cuh
+// states what is rounded) is a template flag of fwd_blocks, bwd_suffix
+// (which rounds g_out, the operand of q) and bwd_blocks; the entry points
+// take it as an int and dispatch both instantiations. fwd_blocks rounds w
+// as the block forms it, from T = 1: the reference rounds the w it forms
+// from the tile's running T, so the two can differ by one bf16 ulp of w.
+// Under blend_bf16 fwd_blocks also writes sacc_b (nb, C, P), the block's
+// blend with w left float32, and bwd_suffix reads it in place of acc_b: the
+// reference's suffix sums w * q with w float32.
+//
 // Plain C entry points (bound with ctypes) launch on the caller's stream
 // and return cudaGetLastError().
 
@@ -162,12 +172,13 @@ __device__ int stage_kept(float* s_tab, int* s_pos, int* s_warp,
   return n;
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void fwd_blocks_kernel(const float* __restrict__ table,
                                   const int* __restrict__ runs,
                                   const int* __restrict__ blk_count,
                                   float* __restrict__ delta,
                                   float* __restrict__ acc_out,
+                                  float* __restrict__ sacc_out,
                                   int* __restrict__ kept, int num_tiles,
                                   int tiles_x, int tile_size, int B) {
   constexpr int W = 8 + C;
@@ -179,21 +190,25 @@ __global__ void fwd_blocks_kernel(const float* __restrict__ table,
   const int p = threadIdx.x;
   const int P = blockDim.x;
   float log_t = 0.0f;
-  float acc[C];
+  float acc[C], sacc[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < C; ++c) acc[c] = sacc[c] = 0.0f;
   int n = 0;
   if (blk_count[b] > 0) {   // uniform over the CTA
     const int t = tile_of(runs, num_tiles, b);
     n = stage_kept<W>(s_tab, s_pos, s_warp, table + (size_t)b * B * W, B,
                       true, t, tiles_x, tile_size);
-    fs::composite_block<C>(s_tab, n, fs::pixel_of(t, tiles_x, tile_size, p),
-                           log_t, acc);
+    fs::composite_block<C, BF16>(s_tab, n,
+                                 fs::pixel_of(t, tiles_x, tile_size, p),
+                                 log_t, acc, sacc);
   }
   if (p == 0) kept[b] = n;
   delta[(size_t)b * P + p] = log_t;
 #pragma unroll
-  for (int c = 0; c < C; ++c) acc_out[((size_t)b * C + c) * P + p] = acc[c];
+  for (int c = 0; c < C; ++c) {
+    acc_out[((size_t)b * C + c) * P + p] = acc[c];
+    if constexpr (BF16) sacc_out[((size_t)b * C + c) * P + p] = sacc[c];
+  }
 }
 
 __global__ void fwd_scan_kernel(const float* __restrict__ delta,
@@ -258,7 +273,7 @@ __global__ void fwd_combine_kernel(const float* __restrict__ acc,
   out[((size_t)t * C + c) * P + p] = o;
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void bwd_suffix_kernel(const float* __restrict__ acc,
                                   const float* __restrict__ carry,
                                   const int* __restrict__ live,
@@ -272,7 +287,8 @@ __global__ void bwd_suffix_kernel(const float* __restrict__ acc,
   const int p = i % P;
   float g[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) g[c] = g_out[((size_t)t * C + c) * P + p];
+  for (int c = 0; c < C; ++c)
+    g[c] = fs::blend_operand<BF16>(g_out[((size_t)t * C + c) * P + p]);
   const int b_begin = runs[t];
   float s = 0.0f;
   for (int top = runs[t + 1] - 1; top >= b_begin; top -= kBatch) {
@@ -298,7 +314,7 @@ __global__ void bwd_suffix_kernel(const float* __restrict__ acc,
   }
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void bwd_blocks_kernel(const float* __restrict__ table,
                                   const int* __restrict__ runs,
                                   const int* __restrict__ live,
@@ -345,7 +361,7 @@ __global__ void bwd_blocks_kernel(const float* __restrict__ table,
   for (int i = n * W + p; i < n_pad * W; i += P)
     s_tab[i] = (i % W == 5) ? kInertLogOp : 0.0f;
   __syncthreads();
-  fs::block_backward<C>(s_tab, s_part, s_out, n_pad,
+  fs::block_backward<C, BF16>(s_tab, s_part, s_out, n_pad,
                         fs::pixel_of(t, tiles_x, tile_size, p), g, glt,
                         expf(logt_fin), L, S[(size_t)b * P + p]);
   for (int i = p; i < B * W; i += P) {
@@ -370,15 +386,16 @@ size_t bwd_blocks_smem(int P, int B, int C) {
 
 extern "C" int fs_flat_fwd_blocks(const float* table, const int* runs,
                                   const int* blk_count, float* delta,
-                                  float* acc, int* kept, int num_blocks,
-                                  int num_tiles, int tiles_x, int tile_size,
-                                  int B, int C, void* stream) {
+                                  float* acc, float* sacc, int* kept,
+                                  int num_blocks, int num_tiles, int tiles_x,
+                                  int tile_size, int B, int C, int bf16,
+                                  void* stream) {
   if (C != 8) return (int)cudaErrorInvalidValue;
   if (num_blocks == 0) return 0;
-  fwd_blocks_kernel<8><<<num_blocks, tile_size * tile_size,
-                         fwd_blocks_smem(B, C), (cudaStream_t)stream>>>(
-      table, runs, blk_count, delta, acc, kept, num_tiles, tiles_x, tile_size,
-      B);
+  auto kernel = bf16 ? fwd_blocks_kernel<8, true> : fwd_blocks_kernel<8, false>;
+  kernel<<<num_blocks, tile_size * tile_size, fwd_blocks_smem(B, C),
+           (cudaStream_t)stream>>>(table, runs, blk_count, delta, acc, sacc,
+                                   kept, num_tiles, tiles_x, tile_size, B);
   return (int)cudaGetLastError();
 }
 
@@ -403,12 +420,13 @@ extern "C" int fs_flat_fwd_combine(const float* acc, const float* carry,
 extern "C" int fs_flat_bwd_suffix(const float* acc, const float* carry,
                                   const int* live, const int* runs,
                                   const float* g_out, float* S, int num_tiles,
-                                  int P, int C, void* stream) {
+                                  int P, int C, int bf16, void* stream) {
   if (C != 8) return (int)cudaErrorInvalidValue;
   const int n = num_tiles * P;
-  bwd_suffix_kernel<8><<<(n + kSuffixThreads - 1) / kSuffixThreads,
-                         kSuffixThreads, 0, (cudaStream_t)stream>>>(
-      acc, carry, live, runs, g_out, S, num_tiles, P);
+  auto kernel = bf16 ? bwd_suffix_kernel<8, true> : bwd_suffix_kernel<8, false>;
+  kernel<<<(n + kSuffixThreads - 1) / kSuffixThreads, kSuffixThreads, 0,
+           (cudaStream_t)stream>>>(acc, carry, live, runs, g_out, S,
+                                   num_tiles, P);
   return (int)cudaGetLastError();
 }
 
@@ -418,16 +436,16 @@ extern "C" int fs_flat_bwd_blocks(const float* table, const int* runs,
                                   const float* carry, const float* S,
                                   float* dtab, int num_blocks, int num_tiles,
                                   int tiles_x, int tile_size, int B, int C,
-                                  void* stream) {
+                                  int bf16, void* stream) {
   if (C != 8) return (int)cudaErrorInvalidValue;
   if (num_blocks == 0) return 0;
   const int P = tile_size * tile_size;
   const size_t smem = bwd_blocks_smem(P, B, C);
+  auto kernel = bf16 ? bwd_blocks_kernel<8, true> : bwd_blocks_kernel<8, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_blocks_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_blocks_kernel<8><<<num_blocks, P, smem, (cudaStream_t)stream>>>(
+  kernel<<<num_blocks, P, smem, (cudaStream_t)stream>>>(
       table, runs, live, g_out, g_logt, logt, carry, S, dtab, num_tiles,
       tiles_x, tile_size, B);
   return (int)cudaGetLastError();

@@ -68,6 +68,15 @@ def sphere_points(n: int = 2000, radius: float = 0.5, seed: int = 0,
     return f32(pts * radius), f32(np.clip(colors, 0, 1)), f32(pts.copy())
 
 
+def sphere_gt(n: int, radius: float = 0.5) -> np.ndarray:
+    """(n, 3) float64 points on the GT sphere, uniform in area, from fixed
+    seeds: the reference cloud the scene's meshes are scored against."""
+    th = np.random.RandomState(3).rand(n) * 2 * np.pi
+    ph = np.arccos(np.random.RandomState(4).rand(n) * 2 - 1)
+    return radius * np.stack([np.sin(ph) * np.cos(th),
+                              np.sin(ph) * np.sin(th), np.cos(ph)], -1)
+
+
 def sphere_depth_normals(camera: Camera, center=(0.0, 0.0, 0.0),
                          radius: float = 0.5):
     """Analytic ray-traced z-depth + world normals of the GT sphere for ONE

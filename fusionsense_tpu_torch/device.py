@@ -36,3 +36,10 @@ def device_vector(values, device, dtype=torch.float32) -> torch.Tensor:
     for i, v in enumerate(values):
         out[i].fill_(v)
     return out
+
+
+def host(x):
+    """A tensor on any device, or an array-like, as a numpy array."""
+    import numpy as np
+
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

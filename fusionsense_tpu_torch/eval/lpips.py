@@ -1,10 +1,10 @@
 """LPIPS perceptual metric, weights-gated.
 
 Counterpart of fusionsense_tpu/eval/lpips.py. Backends, in order:
-1. the in-repo VGG-LPIPS with converted weights (FUSIONSENSE_LPIPS_WEIGHTS,
-   or ~/.cache/fusionsense/lpips_vgg.npz): not ported yet, so a weights file
-   found there raises NotImplementedError (ROADMAP A14) rather than being
-   passed over,
+1. the in-repo VGG-LPIPS (eval/lpips_vgg.py) with converted weights: the
+   .npz at FUSIONSENSE_LPIPS_WEIGHTS, or ~/.cache/fusionsense/lpips_vgg.npz
+   (the file the JAX package reads); a file that does not load, or whose
+   shapes do not fit the net, is passed over for the next backend,
 2. the `lpips` package if installed,
 3. torchmetrics' LPIPS if installed,
 4. else `available()` is False and the evaluator leaves the metric out.
@@ -12,6 +12,7 @@ Counterpart of fusionsense_tpu/eval/lpips.py. Backends, in order:
 from __future__ import annotations
 
 import os
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -29,15 +30,32 @@ def _weights_path() -> str | None:
     return str(default) if default.exists() else None
 
 
+def _load_vgg(path: str):
+    """The in-repo net from `path`, run once on a small pair so a file of
+    the wrong layout fails here; None when it does not load."""
+    from fusionsense_tpu_torch.eval.lpips_vgg import LPIPSVGG, load_lpips_params
+
+    try:
+        net = LPIPSVGG(load_lpips_params(path))
+        z = torch.zeros((16, 16, 3))
+        with torch.no_grad():
+            float(net(z, z))
+    except (OSError, EOFError, ValueError, KeyError, RuntimeError, TypeError,
+            zipfile.BadZipFile):
+        return None
+    return net
+
+
 def available() -> bool:
     global _net, _kind
     if _kind is not None:
         return True
     path = _weights_path()
     if path is not None:
-        raise NotImplementedError(
-            f"LPIPS weights at {path}: the in-repo VGG-LPIPS net is not "
-            "ported (ROADMAP A14)")
+        net = _load_vgg(path)
+        if net is not None:
+            _net, _kind = net, "vgg"
+            return True
     try:
         import lpips as _lpips  # type: ignore
 
@@ -60,9 +78,18 @@ def available() -> bool:
 
 def lpips(pred, gt) -> float | None:
     """(H, W, 3) pair in [0, 1] (numpy or tensors) -> LPIPS, or None when
-    no backend is available. The net runs on the host."""
+    no backend is available. The in-repo net runs on the device of `pred`
+    (the host for numpy); the package backends on the host."""
     if not available():
         return None
+
+    if _kind == "vgg":
+        dev = pred.device if torch.is_tensor(pred) else torch.device("cpu")
+        as_t = lambda x: torch.as_tensor(  # noqa: E731
+            np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
+            device=dev)
+        with torch.no_grad():
+            return float(_net.to(dev)(as_t(pred), as_t(gt)))
 
     def prep(x):
         x = x.detach().cpu() if torch.is_tensor(x) else torch.from_numpy(

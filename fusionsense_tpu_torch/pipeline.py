@@ -7,12 +7,13 @@ Counterpart of fusionsense_tpu/pipeline.py. Stages:
  4. training with ADC, touch anchoring and the hull / touch pruning
     callbacks, debug image grids and periodic checkpoints,
  5. the high-gradient export for active touch     [touch_select.high_grad]
- 6. evaluation (render metrics) -> metrics.json.
+ 6. mesh extraction                                [mesh_export]
+ 7. evaluation (render metrics) -> metrics.json.
 Generated priors are written in capture coordinates and registered in the
 scene's transforms.json, so later runs reuse them.
 
-Not ported yet (each raises, naming its ROADMAP item): mesh extraction
-(A14), the device mesh (A18) and the live viewer (A19).
+Not ported yet (each raises, naming its ROADMAP item): the device mesh
+(A18) and the live viewer (A19).
 """
 from __future__ import annotations
 
@@ -233,8 +234,21 @@ class ReconstructionPipeline:
 
     # ------------------------------------------------------------ mesh ----
     def extract_mesh(self, method: str = "tsdf", **kw):
-        raise NotImplementedError(
-            f"mesh extraction ({method!r}) is not ported (ROADMAP A14)")
+        """mesh_export.extract on the trained Gaussians, the train cameras
+        (with the optimised pose deltas of a camera-opt run), the grown
+        render config and the hull; the mesh goes to output_dir in capture
+        coordinates."""
+        from fusionsense_tpu_torch.mesh_export import extract
+
+        if self.trainer is None:
+            raise RuntimeError("train first")
+        deltas = (self.trainer.cam_state[0]
+                  if self.cfg.experiment.train.camera_opt else None)
+        return extract(
+            method, self.trainer.gaussians, self.camera,
+            rasterize_cfg=self._render_rcfg(), out_dir=self.out,
+            untransform=self.scene.untransform_points,
+            hull_points=self.hull_points, cam_deltas=deltas, **kw)
 
     # ------------------------------------------------------------ eval ----
     def evaluate(self, split: str = "train"):

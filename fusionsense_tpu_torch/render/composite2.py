@@ -26,7 +26,8 @@ stages, none of which walks a tile's chunks with the blending math
   K4: bwd_suffix (S per chunk, from acc and the cotangents) -> bwd_chunks
       (each used chunk's gradient rows from its carries and S)
 
-K3 returns (out, logT, carries, nused, acc); K4 takes the last three back.
+K3 returns (out, logT, carries, nused, sacc); K4 takes the last three
+back.
 Every stage exists twice: a CUDA kernel and a plain tensor version with the
 same semantics, looping over the chunk index and vectorised over tiles. A
 wrapper sends a CPU tensor to the plain version and a CUDA tensor to the
@@ -35,13 +36,22 @@ for chunks below ceil(count / B) and S for chunks below nused: the kernels
 leave the rest unwritten and the plain versions zero, and nothing reads
 them. tile_ids gives each table row's global tile, so a tile-sharded
 caller can composite an offset slice.
+
+blend_bf16 is the reference's bf16 blend (pallas_composite2.py's
+blend_bf16 branch), as in render/flat_composite.py: fwd_chunks, bwd_suffix
+and bwd_chunks round both operands of each blend product to bfloat16 and
+sum the products in float32. A chunk forms w from T = 1 and the reference
+from the tile's running T, so a rounded w may differ from the reference's
+by one bf16 ulp. As in the flat layout, fwd_chunks also returns sacc, the
+blend with w left float32 under the flag (acc itself without it), and K3
+hands K4 sacc: the reference's suffix sums w * q with w float32.
 """
 from __future__ import annotations
 
 import torch
 
 from fusionsense_tpu_torch.render.flat_composite import (
-    T_EPS_LOG, _alpha_of_rows, _check, _pixel_xy,
+    T_EPS_LOG, _alpha_of_rows, _check, _pixel_xy, blend_operand,
 )
 
 # launches per entry point (one per K3 or K4 call, whatever its stages);
@@ -66,13 +76,6 @@ def _count(key: str) -> None:
      else LAUNCHES)[key] += 1
 
 
-def _no_bf16(blend_bf16: bool) -> None:
-    if blend_bf16:
-        raise NotImplementedError(
-            "blend_bf16=True is not ported: K3/K4 blend in float32 only "
-            "(ROADMAP N5)")
-
-
 def _chunks_of(K: int, B: int) -> int:
     """Chunks per tile; the reference's BlockSpecs need B to divide K."""
     if K % B:
@@ -88,15 +91,19 @@ def n_chunks(counts: torch.Tensor, B: int, nc: int) -> torch.Tensor:
 
 # ------------------------------------------------------------ plain ------
 
-def fwd_chunks_plain(table, counts, tile_ids, tiles_x, tile_size, B=128):
+def fwd_chunks_plain(table, counts, tile_ids, tiles_x, tile_size, B=128,
+                     blend_bf16=False):
     """Stage 1 of K3: every chunk below ceil(count / B) composited by itself
     from T = 1. Returns delta (T, K/B, P), its sum of log(1 - alpha), and
-    acc (T, K/B, C, P), its blend; zeros for the other chunks."""
+    acc (T, K/B, C, P), its blend; zeros for the other chunks; sacc, the
+    blend K4's suffix reads: acc itself, or under blend_bf16 the blend with
+    w left float32."""
     T, K, W = table.shape
     C, P, nc = W - 8, tile_size * tile_size, _chunks_of(K, B)
     f32 = dict(dtype=torch.float32, device=table.device)
     delta = torch.zeros((T, nc, P), **f32)
     acc = torch.zeros((T, nc, C, P), **f32)
+    sacc = torch.zeros((T, nc, C, P), **f32) if blend_bf16 else acc
     n = n_chunks(counts, B, nc)
     px_all, py_all = _pixel_xy(tile_ids.long(), tiles_x, tile_size, P)
     for c in range(nc):
@@ -108,9 +115,13 @@ def fwd_chunks_plain(table, counts, tile_ids, tiles_x, tile_size, B=128):
         lg = torch.log1p(-alpha)
         cum = torch.cumsum(lg, dim=1)
         w = alpha * torch.exp(cum - lg)
-        acc[tl, c] = torch.einsum("tbc,tbp->tcp", rows[..., 8:], w)
+        chan = blend_operand(rows[..., 8:], blend_bf16)
+        acc[tl, c] = torch.einsum("tbc,tbp->tcp", chan,
+                                  blend_operand(w, blend_bf16))
+        if blend_bf16:
+            sacc[tl, c] = torch.einsum("tbc,tbp->tcp", chan, w)
         delta[tl, c] = cum[:, -1, :]
-    return delta, acc
+    return delta, acc, sacc
 
 
 def fwd_combine_plain(delta, acc, counts, B=128):
@@ -140,12 +151,14 @@ def fwd_combine_plain(delta, acc, counts, B=128):
     return out, log_t, carries, nused
 
 
-def bwd_suffix_plain(acc, carries, nused, g_out):
+def bwd_suffix_plain(acc, carries, nused, g_out, blend_bf16=False):
     """Stage 1 of K4: S (T, K/B, P), for each chunk below nused the sum over
     the tile's later used chunks of exp(carries) * sum_c g_out[c] * acc[c]
-    (the chunk's suffix of w * q), summed last chunk first; zeros past
-    nused."""
+    (the chunk's suffix of w * q; acc is fwd_chunks' sacc, and g_out is
+    rounded as q's operand under blend_bf16), summed last chunk first; zeros
+    past nused."""
     T, nc, _, P = acc.shape
+    g_out = blend_operand(g_out, blend_bf16)
     f32 = dict(dtype=torch.float32, device=acc.device)
     S = torch.zeros((T, nc, P), **f32)
     s = torch.zeros((T, P), **f32)
@@ -161,7 +174,7 @@ def bwd_suffix_plain(acc, carries, nused, g_out):
 
 
 def bwd_chunks_plain(table, nused, tile_ids, g_out, g_logt, logt, carries, S,
-                     tiles_x, tile_size, B=128):
+                     tiles_x, tile_size, B=128, blend_bf16=False):
     """Stage 2 of K4: dtab (T, K, 8 + C), each chunk below nused replayed
     from its carry with its suffix S; zero rows past nused * B."""
     T, K, W = table.shape
@@ -185,7 +198,8 @@ def bwd_chunks_plain(table, nused, tile_ids, g_out, g_logt, logt, carries, S,
         cum = torch.cumsum(lg, dim=1)
         t_excl = torch.exp(carries[tl, c][:, None, :] + cum - lg)
         w = alpha * t_excl
-        q = torch.einsum("tbc,tcp->tbp", chan, go)
+        go_b = blend_operand(go, blend_bf16)
+        q = torch.einsum("tbc,tcp->tbp", blend_operand(chan, blend_bf16), go_b)
         a_term = w * q
         cum_a = torch.cumsum(a_term, dim=1)
         suffix = (cum_a[:, -1:, :] - cum_a) + S[tl, c][:, None, :]
@@ -198,7 +212,8 @@ def bwd_chunks_plain(table, nused, tile_ids, g_out, g_logt, logt, carries, S,
         d_cb = torch.sum(d_power * (-dx * dy), -1)
         d_cc = torch.sum(d_power * (-0.5 * dy * dy), -1)
         d_lo = torch.sum(d_power, -1)
-        d_chan = torch.einsum("tbp,tcp->tbc", w, go)
+        d_chan = torch.einsum("tbp,tcp->tbc", blend_operand(w, blend_bf16),
+                              go_b)
         dtab[tl, c * B:(c + 1) * B] = torch.cat(
             [torch.stack([d_mx, d_my, d_ca, d_cb, d_cc, d_lo, d_mx.abs(),
                           d_my.abs()], -1), d_chan], -1)
@@ -208,31 +223,30 @@ def bwd_chunks_plain(table, nused, tile_ids, g_out, g_logt, logt, carries, S,
 def composite2_fwd_plain(table, counts, tile_ids, tiles_x, tile_size, B=128,
                          blend_bf16=False):
     """Plain K3: returns (out (T, C, P), logT (T, P), carries (T, K/B, P),
-    nused (T,) int32, acc (T, K/B, C, P))."""
-    _no_bf16(blend_bf16)
+    nused (T,) int32, sacc (T, K/B, C, P), fwd_chunks' blend for K4's
+    suffix)."""
     LAUNCHES["composite2_fwd_plain"] += 1
-    delta, acc = fwd_chunks_plain(table, counts, tile_ids, tiles_x, tile_size,
-                                  B)
-    return (*fwd_combine_plain(delta, acc, counts, B), acc)
+    delta, acc, sacc = fwd_chunks_plain(table, counts, tile_ids, tiles_x,
+                                        tile_size, B, blend_bf16)
+    return (*fwd_combine_plain(delta, acc, counts, B), sacc)
 
 
 def composite2_bwd_plain(table, nused, tile_ids, g_out, g_logt, logt, carries,
                          acc, tiles_x, tile_size, B=128, blend_bf16=False):
     """Plain K4: g_out (T, C, P), g_logt/logt (T, P) and K3's carries,
-    nused and acc -> dtab (T, K, 8 + C)."""
-    _no_bf16(blend_bf16)
+    nused and sacc (as acc) -> dtab (T, K, 8 + C)."""
     LAUNCHES["composite2_bwd_plain"] += 1
-    S = bwd_suffix_plain(acc, carries, nused, g_out)
+    S = bwd_suffix_plain(acc, carries, nused, g_out, blend_bf16)
     return bwd_chunks_plain(table, nused, tile_ids, g_out, g_logt, logt,
-                            carries, S, tiles_x, tile_size, B)
+                            carries, S, tiles_x, tile_size, B, blend_bf16)
 
 
 # ----------------------------------------------------------- kernels ------
 
 _C_SUPPORTED = 8
 _FNS = {   # C entry point -> (pointer arguments, int arguments)
-    "fs_dense_fwd_chunks": (5, 6), "fs_dense_fwd_combine": (7, 5),
-    "fs_dense_bwd_suffix": (5, 4), "fs_dense_bwd_chunks": (9, 6),
+    "fs_dense_fwd_chunks": (6, 7), "fs_dense_fwd_combine": (7, 5),
+    "fs_dense_bwd_suffix": (5, 5), "fs_dense_bwd_chunks": (9, 7),
 }
 _F32, _I32 = torch.float32, torch.int32
 
@@ -260,7 +274,8 @@ def _launch(fn, tensors, ints):
     launch("composite2", _FNS, fn, tensors, ints)
 
 
-def fwd_chunks_cuda(table, counts, tile_ids, tiles_x, tile_size, B=128):
+def fwd_chunks_cuda(table, counts, tile_ids, tiles_x, tile_size, B=128,
+                    blend_bf16=False):
     """Stage 1 of K3 on the card; same returns as fwd_chunks_plain, left
     unwritten past ceil(count / B)."""
     _check_geometry(table, tile_size, B)
@@ -270,9 +285,10 @@ def fwd_chunks_cuda(table, counts, tile_ids, tiles_x, tile_size, B=128):
            ("counts", counts, _I32, (T,)), ("tile_ids", tile_ids, _I32, (T,)))
     delta = torch.empty((T, nc, P), dtype=_F32, device=table.device)
     acc = torch.empty((T, nc, C, P), dtype=_F32, device=table.device)
-    _launch("fs_dense_fwd_chunks", (table, counts, tile_ids, delta, acc),
-            (T, tiles_x, tile_size, K, B, C))
-    return delta, acc
+    sacc = torch.empty_like(acc) if blend_bf16 else acc
+    _launch("fs_dense_fwd_chunks", (table, counts, tile_ids, delta, acc, sacc),
+            (T, tiles_x, tile_size, K, B, C, int(blend_bf16)))
+    return delta, acc, sacc
 
 
 def fwd_combine_cuda(delta, acc, counts, B=128):
@@ -291,7 +307,7 @@ def fwd_combine_cuda(delta, acc, counts, B=128):
     return out, logt, carries, nused
 
 
-def bwd_suffix_cuda(acc, carries, nused, g_out):
+def bwd_suffix_cuda(acc, carries, nused, g_out, blend_bf16=False):
     """Stage 1 of K4 on the card; same returns as bwd_suffix_plain, left
     unwritten past nused."""
     T, nc, C, P = acc.shape
@@ -302,12 +318,12 @@ def bwd_suffix_cuda(acc, carries, nused, g_out):
            ("nused", nused, _I32, (T,)), ("g_out", g_out, _F32, (T, C, P)))
     S = torch.empty((T, nc, P), dtype=_F32, device=acc.device)
     _launch("fs_dense_bwd_suffix", (acc, carries, nused, g_out, S),
-            (T, P, nc, C))
+            (T, P, nc, C, int(blend_bf16)))
     return S
 
 
 def bwd_chunks_cuda(table, nused, tile_ids, g_out, g_logt, logt, carries, S,
-                    tiles_x, tile_size, B=128):
+                    tiles_x, tile_size, B=128, blend_bf16=False):
     """Stage 2 of K4 on the card; same returns as bwd_chunks_plain."""
     _check_geometry(table, tile_size, B)
     T, K, W = table.shape
@@ -320,28 +336,26 @@ def bwd_chunks_cuda(table, nused, tile_ids, g_out, g_logt, logt, carries, S,
     dtab = torch.empty((T, K, W), dtype=_F32, device=table.device)
     _launch("fs_dense_bwd_chunks",
             (table, nused, tile_ids, g_out, g_logt, logt, carries, S, dtab),
-            (T, tiles_x, tile_size, K, B, C))
+            (T, tiles_x, tile_size, K, B, C, int(blend_bf16)))
     return dtab
 
 
 def composite2_fwd_cuda(table, counts, tile_ids, tiles_x, tile_size, B=128,
                         blend_bf16=False):
     """K3 on the card: two launches; same returns as composite2_fwd_plain."""
-    _no_bf16(blend_bf16)
-    delta, acc = fwd_chunks_cuda(table, counts, tile_ids, tiles_x, tile_size,
-                                 B)
+    delta, acc, sacc = fwd_chunks_cuda(table, counts, tile_ids, tiles_x,
+                                       tile_size, B, blend_bf16)
     out, logt, carries, nused = fwd_combine_cuda(delta, acc, counts, B)
     _count("composite2_fwd")
-    return out, logt, carries, nused, acc
+    return out, logt, carries, nused, sacc
 
 
 def composite2_bwd_cuda(table, nused, tile_ids, g_out, g_logt, logt, carries,
                         acc, tiles_x, tile_size, B=128, blend_bf16=False):
     """K4 on the card: two launches; same returns as composite2_bwd_plain."""
-    _no_bf16(blend_bf16)
-    S = bwd_suffix_cuda(acc, carries, nused, g_out)
+    S = bwd_suffix_cuda(acc, carries, nused, g_out, blend_bf16)
     dtab = bwd_chunks_cuda(table, nused, tile_ids, g_out, g_logt, logt,
-                           carries, S, tiles_x, tile_size, B)
+                           carries, S, tiles_x, tile_size, B, blend_bf16)
     _count("composite2_bwd")
     return dtab
 
@@ -364,20 +378,21 @@ def composite2_bwd(table, *args, **kw):
 
 class _Composite2(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, counts, tile_ids, tiles_x, tile_size, B):
+    def forward(ctx, table, counts, tile_ids, tiles_x, tile_size, B,
+                blend_bf16):
         table = table.contiguous()
         counts = counts.to(torch.int32).contiguous()
         tile_ids = tile_ids.to(torch.int32).contiguous()
         out, logt, carries, nused, acc = composite2_fwd(
-            table, counts, tile_ids, tiles_x, tile_size, B)
+            table, counts, tile_ids, tiles_x, tile_size, B, blend_bf16)
         ctx.save_for_backward(table, nused, tile_ids, logt, carries, acc)
-        ctx.geom = (tiles_x, tile_size, B)
+        ctx.geom = (tiles_x, tile_size, B, blend_bf16)
         return out.transpose(1, 2).contiguous(), 1.0 - torch.exp(logt)
 
     @staticmethod
     def backward(ctx, g_out, g_alpha):
         table, nused, tile_ids, logt, carries, acc = ctx.saved_tensors
-        tiles_x, tile_size, B = ctx.geom
+        tiles_x, tile_size, B, blend_bf16 = ctx.geom
         T, _, W = table.shape
         P = tile_size * tile_size
         f32 = dict(dtype=torch.float32, device=table.device)
@@ -386,8 +401,8 @@ class _Composite2(torch.autograd.Function):
         g_logt = (torch.zeros((T, P), **f32) if g_alpha is None
                   else (-g_alpha).contiguous())
         dtab = composite2_bwd(table, nused, tile_ids, g_out_t, g_logt, logt,
-                              carries, acc, tiles_x, tile_size, B)
-        return dtab, None, None, None, None, None
+                              carries, acc, tiles_x, tile_size, B, blend_bf16)
+        return dtab, None, None, None, None, None, None
 
 
 def composite2(table, counts, tile_ids, tiles_x, tile_size, B=128,
@@ -398,6 +413,6 @@ def composite2(table, counts, tile_ids, tiles_x, tile_size, B=128,
     gradient reaches the table only, with |d mx|, |d my| in columns 6, 7.
     Dead slots must carry log_op = -1e10; counts (T,) are the live slots per
     tile and tile_ids (T,) each row's global tile id (arange(T) for a whole
-    image)."""
-    _no_bf16(blend_bf16)
-    return _Composite2.apply(table, counts, tile_ids, tiles_x, tile_size, B)
+    image). blend_bf16 takes the reference's bf16 blend products."""
+    return _Composite2.apply(table, counts, tile_ids, tiles_x, tile_size, B,
+                             bool(blend_bf16))

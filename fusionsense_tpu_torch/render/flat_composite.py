@@ -34,6 +34,19 @@ fallback between the two. Every row of out/logT is written by both (tiles
 without blocks get out = 0, log T = 0), which gives the reference's
 _mask_empty semantics by construction.
 
+blend_bf16 is the reference's bf16 blend (pallas_flat.py's blend_bf16
+branch): both operands of each blend product (acc = chan^T w; backward
+q = chan g_out and d chan = w g_out^T) are rounded to bfloat16 and the
+products summed in float32; the alpha math stays float32. Every stage that
+forms such a product takes the flag: fwd_blocks, bwd_suffix (its q reads
+g_out) and bwd_blocks. The plain versions round with .to(torch.bfloat16),
+which is round to nearest even, as the kernels' __float2bfloat16_rn. A
+block forms w from T = 1 and the reference from the tile's running T, so
+a rounded w may differ from the reference's by one bf16 ulp. The suffix S
+of K2 is a sum of w * q with w float32 in the reference, so under the flag
+fwd_blocks also returns sacc, the blend with w left float32, and K1 hands
+K2 sacc in place of acc (the same tensor without the flag).
+
 The kernels leave out the rows cull_rows marks (dead slots and other rows
 that give alpha = 0 at every pixel of their tile); the plain versions take
 them, which adds exact zeros (csrc/flat_composite.cu states why). Both
@@ -76,11 +89,10 @@ def _count(key: str) -> None:
      else LAUNCHES)[key] += 1
 
 
-def _no_bf16(blend_bf16: bool) -> None:
-    if blend_bf16:
-        raise NotImplementedError(
-            "blend_bf16=True is not ported: K1/K2 blend in float32 only "
-            "(ROADMAP N5)")
+def blend_operand(x: torch.Tensor, blend_bf16: bool) -> torch.Tensor:
+    """x as a blend product takes it: rounded to bfloat16 (nearest even)
+    and back under blend_bf16, else x itself."""
+    return x.to(torch.bfloat16).to(x.dtype) if blend_bf16 else x
 
 
 def tile_runs(blk_tile: torch.Tensor, num_tiles: int) -> torch.Tensor:
@@ -157,11 +169,14 @@ def _at_position(start, length, k):
     return tiles, start[tiles] + k
 
 
-def fwd_blocks_plain(table, runs, blk_count, tiles_x, tile_size, B=128):
+def fwd_blocks_plain(table, runs, blk_count, tiles_x, tile_size, B=128,
+                     blend_bf16=False):
     """Stage 1 of K1: every block with count > 0 composited by itself from
     T = 1. Returns delta (nb, P), the block's sum of log(1 - alpha), and
     acc (nb, C, P), its blend, zeros elsewhere; kept (nb,) int32, the rows
-    of each block with count > 0 that cull_rows keeps, 0 elsewhere."""
+    of each block with count > 0 that cull_rows keeps, 0 elsewhere; sacc,
+    the blend K2's suffix reads: acc itself, or under blend_bf16 the blend
+    with w left float32."""
     PB, W = table.shape
     C, P, nb = W - 8, tile_size * tile_size, PB // B
     tab = table.reshape(nb, B, W)
@@ -169,6 +184,7 @@ def fwd_blocks_plain(table, runs, blk_count, tiles_x, tile_size, B=128):
     f32 = dict(dtype=torch.float32, device=table.device)
     delta = torch.zeros((nb, P), **f32)
     acc = torch.zeros((nb, C, P), **f32)
+    sacc = torch.zeros((nb, C, P), **f32) if blend_bf16 else acc
     kept = torch.where(
         blk_count > 0, B - cull_rows(table, tile, tiles_x, tile_size, B).sum(1),
         0).to(torch.int32)
@@ -179,9 +195,13 @@ def fwd_blocks_plain(table, runs, blk_count, tiles_x, tile_size, B=128):
         lg = torch.log1p(-alpha)
         cum = torch.cumsum(lg, dim=1)
         w = alpha * torch.exp(cum - lg)
-        acc[bl] = torch.einsum("tbc,tbp->tcp", rows[..., 8:], w)
+        chan = blend_operand(rows[..., 8:], blend_bf16)
+        acc[bl] = torch.einsum("tbc,tbp->tcp", chan,
+                               blend_operand(w, blend_bf16))
+        if blend_bf16:
+            sacc[bl] = torch.einsum("tbc,tbp->tcp", chan, w)
         delta[bl] = cum[:, -1, :]
-    return delta, acc, kept
+    return delta, acc, kept, sacc
 
 
 def fwd_scan_plain(delta, runs, blk_count):
@@ -219,10 +239,13 @@ def fwd_combine_plain(acc, carry, live, runs):
     return out
 
 
-def bwd_suffix_plain(acc, carry, live, runs, g_out):
+def bwd_suffix_plain(acc, carry, live, runs, g_out, blend_bf16=False):
     """Stage 1 of K2: S (nb, P), the sum over each block's later live blocks
-    of exp(carry) * sum_c g_out[c] * acc[c] (each block's sum of w * q)."""
+    of exp(carry) * sum_c g_out[c] * acc[c] (each block's sum of w * q;
+    acc is fwd_blocks' sacc, and g_out is rounded as q's operand under
+    blend_bf16)."""
     nb, _, P = acc.shape
+    g_out = blend_operand(g_out, blend_bf16)
     start, length, max_len = _runs_by_position(runs)
     s = torch.zeros((start.numel(), P), dtype=torch.float32, device=acc.device)
     S = torch.zeros((nb, P), dtype=torch.float32, device=acc.device)
@@ -237,7 +260,7 @@ def bwd_suffix_plain(acc, carry, live, runs, g_out):
 
 
 def bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
-                     tiles_x, tile_size, B=128):
+                     tiles_x, tile_size, B=128, blend_bf16=False):
     """Stage 2 of K2: dtab (PB, 8 + C) of the live blocks, each replayed from
     its carry with its suffix S; dead blocks get zeros."""
     PB, W = table.shape
@@ -259,7 +282,8 @@ def bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
         cum = torch.cumsum(lg, dim=1)
         t_excl = torch.exp(carry[bl][:, None, :] + cum - lg)
         w = alpha * t_excl
-        q = torch.einsum("tbc,tcp->tbp", chan, go)
+        go_b = blend_operand(go, blend_bf16)
+        q = torch.einsum("tbc,tcp->tbp", blend_operand(chan, blend_bf16), go_b)
         a_term = w * q
         cum_a = torch.cumsum(a_term, dim=1)
         suffix = (cum_a[:, -1:, :] - cum_a) + S[bl][:, None, :]
@@ -274,7 +298,8 @@ def bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
         d_cb = torch.sum(d_power * (-dx * dy), -1)
         d_cc = torch.sum(d_power * (-0.5 * dy * dy), -1)
         d_lo = torch.sum(d_power, -1)
-        d_chan = torch.einsum("tbp,tcp->tbc", w, go)
+        d_chan = torch.einsum("tbp,tcp->tbc", blend_operand(w, blend_bf16),
+                              go_b)
         dtab[bl] = torch.cat(
             [torch.stack([d_mx, d_my, d_ca, d_cb, d_cc, d_lo, d_mx.abs(),
                           d_my.abs()], -1), d_chan], -1)
@@ -284,34 +309,33 @@ def bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
 def flat_composite_fwd_plain(table, runs, blk_count, num_tiles, tiles_x,
                              tile_size, B=128, blend_bf16=False):
     """Plain K1: returns (out (T+1, C, P), logT (T+1, P), carry (nb, P),
-    acc (nb, C, P), live (nb,) int32)."""
-    _no_bf16(blend_bf16)
+    sacc (nb, C, P), live (nb,) int32); sacc is fwd_blocks' blend for K2's
+    suffix."""
     LAUNCHES["flat_composite_fwd_plain"] += 1
-    delta, acc, _ = fwd_blocks_plain(table, runs, blk_count, tiles_x,
-                                     tile_size, B)
+    delta, acc, _, sacc = fwd_blocks_plain(table, runs, blk_count, tiles_x,
+                                           tile_size, B, blend_bf16)
     carry, live, logt = fwd_scan_plain(delta, runs, blk_count)
-    return fwd_combine_plain(acc, carry, live, runs), logt, carry, acc, live
+    return fwd_combine_plain(acc, carry, live, runs), logt, carry, sacc, live
 
 
 def flat_composite_bwd_plain(table, runs, g_out, g_logt, logt, carry, acc,
                              live, tiles_x, tile_size, B=128,
                              blend_bf16=False):
-    """Plain K2: g_out (T+1, C, P), g_logt/logt (T+1, P) and K1's carry, acc
-    and live -> dtab (PB, 8 + C)."""
-    _no_bf16(blend_bf16)
+    """Plain K2: g_out (T+1, C, P), g_logt/logt (T+1, P) and K1's carry,
+    sacc (as acc) and live -> dtab (PB, 8 + C)."""
     LAUNCHES["flat_composite_bwd_plain"] += 1
-    S = bwd_suffix_plain(acc, carry, live, runs, g_out)
+    S = bwd_suffix_plain(acc, carry, live, runs, g_out, blend_bf16)
     return bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
-                            tiles_x, tile_size, B)
+                            tiles_x, tile_size, B, blend_bf16)
 
 
 # ----------------------------------------------------------- kernels ------
 
 _C_SUPPORTED = 8
 _FNS = {   # C entry point -> (pointer arguments, int arguments)
-    "fs_flat_fwd_blocks": (6, 6), "fs_flat_fwd_scan": (6, 2),
-    "fs_flat_fwd_combine": (5, 3), "fs_flat_bwd_suffix": (6, 3),
-    "fs_flat_bwd_blocks": (9, 6),
+    "fs_flat_fwd_blocks": (7, 7), "fs_flat_fwd_scan": (6, 2),
+    "fs_flat_fwd_combine": (5, 3), "fs_flat_bwd_suffix": (6, 4),
+    "fs_flat_bwd_blocks": (9, 7),
 }
 
 
@@ -353,7 +377,8 @@ def _launch(fn, tensors, ints):
 _F32, _I32 = torch.float32, torch.int32
 
 
-def fwd_blocks_cuda(table, runs, blk_count, tiles_x, tile_size, B=128):
+def fwd_blocks_cuda(table, runs, blk_count, tiles_x, tile_size, B=128,
+                    blend_bf16=False):
     """Stage 1 of K1 on the card; same returns as fwd_blocks_plain."""
     _check_geometry(table, tile_size, B)
     PB, W = table.shape
@@ -363,10 +388,12 @@ def fwd_blocks_cuda(table, runs, blk_count, tiles_x, tile_size, B=128):
            ("blk_count", blk_count, _I32, (nb,)))
     delta = torch.empty((nb, P), dtype=_F32, device=table.device)
     acc = torch.empty((nb, C, P), dtype=_F32, device=table.device)
+    sacc = torch.empty_like(acc) if blend_bf16 else acc
     kept = torch.empty((nb,), dtype=_I32, device=table.device)
-    _launch("fs_flat_fwd_blocks", (table, runs, blk_count, delta, acc, kept),
-            (nb, runs.numel() - 1, tiles_x, tile_size, B, C))
-    return delta, acc, kept
+    _launch("fs_flat_fwd_blocks",
+            (table, runs, blk_count, delta, acc, sacc, kept),
+            (nb, runs.numel() - 1, tiles_x, tile_size, B, C, int(blend_bf16)))
+    return delta, acc, kept, sacc
 
 
 def fwd_scan_cuda(delta, runs, blk_count):
@@ -396,7 +423,7 @@ def fwd_combine_cuda(acc, carry, live, runs):
     return out
 
 
-def bwd_suffix_cuda(acc, carry, live, runs, g_out):
+def bwd_suffix_cuda(acc, carry, live, runs, g_out, blend_bf16=False):
     """Stage 1 of K2 on the card; same returns as bwd_suffix_plain."""
     nb, C, P = acc.shape
     T1 = runs.numel() - 1
@@ -408,12 +435,12 @@ def bwd_suffix_cuda(acc, carry, live, runs, g_out):
            ("g_out", g_out, _F32, (T1, C, P)))
     S = torch.empty((nb, P), dtype=_F32, device=acc.device)
     _launch("fs_flat_bwd_suffix", (acc, carry, live, runs, g_out, S),
-            (T1, P, C))
+            (T1, P, C, int(blend_bf16)))
     return S
 
 
 def bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
-                    tiles_x, tile_size, B=128):
+                    tiles_x, tile_size, B=128, blend_bf16=False):
     """Stage 2 of K2 on the card; same returns as bwd_blocks_plain."""
     _check_geometry(table, tile_size, B)
     PB, W = table.shape
@@ -427,7 +454,7 @@ def bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
     dtab = torch.empty((PB, W), dtype=_F32, device=table.device)
     _launch("fs_flat_bwd_blocks",
             (table, runs, live, g_out, g_logt, logt, carry, S, dtab),
-            (nb, T1, tiles_x, tile_size, B, C))
+            (nb, T1, tiles_x, tile_size, B, C, int(blend_bf16)))
     return dtab
 
 
@@ -435,15 +462,14 @@ def flat_composite_fwd_cuda(table, runs, blk_count, num_tiles, tiles_x,
                             tile_size, B=128, blend_bf16=False):
     """K1 on the card: three launches; same returns as
     flat_composite_fwd_plain."""
-    _no_bf16(blend_bf16)
     if runs.shape != (num_tiles + 2,):
         raise ValueError("runs must have num_tiles + 2 entries")
-    delta, acc, _ = fwd_blocks_cuda(table, runs, blk_count, tiles_x,
-                                    tile_size, B)
+    delta, acc, _, sacc = fwd_blocks_cuda(table, runs, blk_count, tiles_x,
+                                          tile_size, B, blend_bf16)
     carry, live, logt = fwd_scan_cuda(delta, runs, blk_count)
     out = fwd_combine_cuda(acc, carry, live, runs)
     _count("flat_composite_fwd")
-    return out, logt, carry, acc, live
+    return out, logt, carry, sacc, live
 
 
 def flat_composite_bwd_cuda(table, runs, g_out, g_logt, logt, carry, acc,
@@ -451,10 +477,9 @@ def flat_composite_bwd_cuda(table, runs, g_out, g_logt, logt, carry, acc,
                             blend_bf16=False):
     """K2 on the card: two launches; same returns as
     flat_composite_bwd_plain."""
-    _no_bf16(blend_bf16)
-    S = bwd_suffix_cuda(acc, carry, live, runs, g_out)
+    S = bwd_suffix_cuda(acc, carry, live, runs, g_out, blend_bf16)
     dtab = bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
-                           tiles_x, tile_size, B)
+                           tiles_x, tile_size, B, blend_bf16)
     _count("flat_composite_bwd")
     return dtab
 
@@ -478,14 +503,15 @@ def flat_composite_bwd(table, *args, **kw):
 class _FlatComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, blk_tile, blk_count, num_tiles, tiles_x,
-                tile_size, B):
+                tile_size, B, blend_bf16):
         runs = tile_runs(blk_tile, num_tiles)
         blk_count = blk_count.to(torch.int32).contiguous()
         table = table.contiguous()
         out, logt, carry, acc, live = flat_composite_fwd(
-            table, runs, blk_count, num_tiles, tiles_x, tile_size, B)
+            table, runs, blk_count, num_tiles, tiles_x, tile_size, B,
+            blend_bf16)
         ctx.save_for_backward(table, runs, logt, carry, acc, live)
-        ctx.geom = (num_tiles, tiles_x, tile_size, B)
+        ctx.geom = (num_tiles, tiles_x, tile_size, B, blend_bf16)
         out_t = out[:num_tiles].transpose(1, 2).contiguous()   # (T, P, C)
         alpha = 1.0 - torch.exp(logt[:num_tiles])
         return out_t, alpha
@@ -493,7 +519,7 @@ class _FlatComposite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_alpha):
         table, runs, logt, carry, acc, live = ctx.saved_tensors
-        num_tiles, tiles_x, tile_size, B = ctx.geom
+        num_tiles, tiles_x, tile_size, B, blend_bf16 = ctx.geom
         C = table.shape[1] - 8
         P = tile_size * tile_size
         f32 = dict(dtype=torch.float32, device=table.device)
@@ -505,8 +531,9 @@ class _FlatComposite(torch.autograd.Function):
         if g_alpha is not None:
             g_logt[:num_tiles] = -g_alpha
         dtab = flat_composite_bwd(table, runs, g_out_t, g_logt, logt, carry,
-                                  acc, live, tiles_x, tile_size, B)
-        return dtab, None, None, None, None, None, None
+                                  acc, live, tiles_x, tile_size, B,
+                                  blend_bf16)
+        return dtab, None, None, None, None, None, None, None
 
 
 def flat_composite(table, blk_tile, blk_count, num_tiles, tiles_x,
@@ -517,7 +544,7 @@ def flat_composite(table, blk_tile, blk_count, num_tiles, tiles_x,
     alpha (num_tiles, P)); the gradient reaches the table only, with
     |d mx|, |d my| in columns 6, 7. The reference's blk_first and blk_gtile
     are not taken: tile runs follow from the non-decreasing blk_tile, and
-    each block's pixels are those of the tile that owns it."""
-    _no_bf16(blend_bf16)
+    each block's pixels are those of the tile that owns it. blend_bf16
+    takes the reference's bf16 blend products."""
     return _FlatComposite.apply(table, blk_tile, blk_count, num_tiles,
-                                tiles_x, tile_size, B)
+                                tiles_x, tile_size, B, bool(blend_bf16))

@@ -67,9 +67,6 @@ def check_slice(cfg: RasterizeConfig) -> None:
     if cfg.backend not in BACKENDS:
         raise NotImplementedError(
             f"backend={cfg.backend!r}: the backends are {BACKENDS}")
-    if cfg.blend_bf16:
-        raise NotImplementedError(
-            "blend_bf16=True is not ported (ROADMAP N5)")
     if cfg.flat_grad_transpose not in ("landing", "scatter"):
         raise NotImplementedError(
             f"flat_grad_transpose={cfg.flat_grad_transpose!r}: only the "

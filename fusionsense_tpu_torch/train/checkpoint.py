@@ -95,6 +95,15 @@ def load_for_inference(path, device=None):
     return g, step, cam_state
 
 
+def checkpoint_sh_degree(gaussians: GaussianState) -> int:
+    """The SH degree a checkpoint's Gaussians hold, at most 3: the degree
+    fs-mesh and fs-eval render them at. (The JAX package's CLIs render at
+    the default 3 whatever the checkpoint holds; on fewer coefficients its
+    clamped gathers repeat the last one where torch's indexing raises.)"""
+    k = 1 + gaussians.features_rest.shape[1]
+    return min(3, round(k ** 0.5) - 1)
+
+
 def save_trainer_state(trainer, path):
     """Trainer.save: the full state and the host policy state."""
     save_checkpoint(

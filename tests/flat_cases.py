@@ -132,11 +132,12 @@ def case(name):
     return tab, blk_tile, blk_first, blk_count, g_out, g_alpha
 
 
-def torch_fwd_bwd(tab, blk_tile, blk_count, g_out, g_alpha, device="cpu"):
+def torch_fwd_bwd(tab, blk_tile, blk_count, g_out, g_alpha, device="cpu",
+                  blend_bf16=False):
     """Port's flat_composite forward + autograd backward on `device`."""
     t = torch.tensor(tab, device=device, requires_grad=True)
     ms = [torch.tensor(a, device=device) for a in (blk_tile, blk_count)]
-    out, alpha = FC.flat_composite(t, *ms, T, TILES_X, TS, B)
+    out, alpha = FC.flat_composite(t, *ms, T, TILES_X, TS, B, blend_bf16)
     torch.autograd.backward([out, alpha], [torch.tensor(g_out, device=device),
                                            torch.tensor(g_alpha, device=device)])
     return (out.detach().cpu().numpy(), alpha.detach().cpu().numpy(),
@@ -205,13 +206,50 @@ def dense_case(name, seed=0):
     return tab, counts, tile_ids, g_out, g_alpha
 
 
-def torch_dense_fwd_bwd(tab, counts, tile_ids, g_out, g_alpha, device="cpu"):
+def torch_dense_fwd_bwd(tab, counts, tile_ids, g_out, g_alpha, device="cpu",
+                        blend_bf16=False):
     """Port's composite2 forward + autograd backward on `device`."""
     t = torch.tensor(tab, device=device, requires_grad=True)
     out, alpha = C2.composite2(t, torch.tensor(counts, device=device),
                                torch.tensor(tile_ids, device=device),
-                               TILES_X, TS, B)
+                               TILES_X, TS, B, blend_bf16)
     torch.autograd.backward([out, alpha], [torch.tensor(g_out, device=device),
                                            torch.tensor(g_alpha, device=device)])
     return (out.detach().cpu().numpy(), alpha.detach().cpu().numpy(),
             t.grad.cpu().numpy())
+
+
+# blend_bf16 (ROADMAP N5). The plain twins round both operands of each
+# blend product to bf16 as Pallas does, and read their suffix S from a
+# blend with w left float32 as Pallas does; but a block or chunk forms w
+# from T = 1, where Pallas forms it from the tile's running T, so a rounded
+# w may land on the neighbouring bf16 value. Against Pallas interpret mode
+# (CPU, these cases): out is held to one bf16 ulp of a unit channel (2^-8;
+# the twins read up to 3.2e-3) with its mean |d| under a third of the
+# float32 blend's (the twins read at least 3.8x less); dtab column by
+# column within 2e-5 of the column's largest |d| (the twins read up to
+# 8.1e-6, the float32 dtab at least 7.9e-4 in every column).
+TOL_BF16_OUT, TOL_BF16_DTAB_REL, BF16_MEAN_GAP = 4e-3, 2e-5, 3.0
+
+
+def column_errors(got, want):
+    """Each column's (last dimension's) max |got - want| over its max |want|,
+    over the entries where want is finite; got must be NaN exactly there."""
+    got, want = (np.asarray(a).reshape(-1, np.shape(a)[-1])
+                 for a in (got, want))
+    bad = ~np.isfinite(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    got, want = np.where(bad, 0.0, got), np.where(bad, 0.0, want)
+    scale = np.maximum(np.abs(want).max(axis=0), 1e-30)
+    return np.abs(got - want).max(axis=0) / scale
+
+
+def assert_bf16_rounds(out_t, dtab_t, out_f, dtab_f, out_j, dtab_j):
+    """The bf16 twin (t) against Pallas's bf16 (j) at the limits above, and
+    the float32 blend (f) farther off: the rounding is really taken, in the
+    forward and in every column of dtab."""
+    np.testing.assert_allclose(out_t, out_j, atol=TOL_BF16_OUT)
+    gap = np.nanmean(np.abs(out_f - out_j)) / np.nanmean(np.abs(out_t - out_j))
+    assert gap > BF16_MEAN_GAP, gap
+    assert column_errors(dtab_t, dtab_j).max() <= TOL_BF16_DTAB_REL
+    assert (column_errors(dtab_f, dtab_j) > TOL_BF16_DTAB_REL).all()

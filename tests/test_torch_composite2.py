@@ -14,14 +14,15 @@ from fusionsense_tpu.render import pallas_composite2 as PC2
 from fusionsense_tpu_torch.render import composite2 as C2
 
 from flat_cases import (
-    B, DENSE_CASES, DENSE_K, T, TILES_X, TS, dense_case, dense_stops,
-    torch_dense_fwd_bwd,
+    B, DENSE_CASES, DENSE_K, T, TILES_X, TS, assert_bf16_rounds, dense_case,
+    dense_stops, torch_dense_fwd_bwd,
 )
 
 
-def _jax_fwd_bwd(tab, counts, tile_ids, g_out, g_alpha):
+def _jax_fwd_bwd(tab, counts, tile_ids, g_out, g_alpha, blend_bf16=False):
     cj, tj = jnp.asarray(counts), jnp.asarray(tile_ids)
-    f = lambda t: PC2.pallas_composite2(t, cj, tj, TILES_X, TS, B)  # noqa: E731
+    f = lambda t: PC2.pallas_composite2(  # noqa: E731
+        t, cj, tj, TILES_X, TS, B, blend_bf16)
     (out, alpha), vjp = jax.vjp(f, jnp.asarray(tab))
     (dtab,) = vjp((jnp.asarray(g_out), jnp.asarray(g_alpha)))
     return np.asarray(out), np.asarray(alpha), np.asarray(dtab)
@@ -101,7 +102,8 @@ def test_stage_twins_compose_to_pallas(name):
     the carries and nused, then dtab; NaN where the reference has NaN."""
     tab, counts, tile_ids, g_out, g_alpha = dense_case(name)
     table, counts, tile_ids = (torch.tensor(a) for a in (tab, counts, tile_ids))
-    delta, acc = C2.fwd_chunks_plain(table, counts, tile_ids, TILES_X, TS, B)
+    delta, acc, _ = C2.fwd_chunks_plain(table, counts, tile_ids, TILES_X, TS,
+                                        B)
     out, logt, carries, nused = C2.fwd_combine_plain(delta, acc, counts, B)
     _assert_state_matches(out.numpy(), logt.numpy(), carries.numpy(),
                           nused.numpy(), name)
@@ -130,7 +132,8 @@ def test_dense_cases_do_what_they_name():
     for name in ("saturate_mid_tile", "nan_past_stop"):
         tab, counts, tile_ids, _, _ = dense_case(name)
         table, counts_t, ids = (torch.tensor(a) for a in (tab, counts, tile_ids))
-        delta, acc = C2.fwd_chunks_plain(table, counts_t, ids, TILES_X, TS, B)
+        delta, acc, _ = C2.fwd_chunks_plain(table, counts_t, ids, TILES_X,
+                                            TS, B)
         nused = C2.fwd_combine_plain(delta, acc, counts_t, B)[3]
         assert nused[0] == 2 and counts[0] == DENSE_K
         # composited all the same: faint, or NaN from the NaN conic
@@ -160,10 +163,16 @@ def test_offset_tile_ids_move_the_pixels():
     assert not torch.allclose(out_a, out_b, atol=1e-3)
 
 
-def test_blend_bf16_raises():
-    tab, counts, tile_ids, _, _ = dense_case("mixed")
-    args = [torch.tensor(a) for a in (tab, counts, tile_ids)]
-    with pytest.raises(NotImplementedError):
-        C2.composite2(*args, TILES_X, TS, B, True)
-    with pytest.raises(NotImplementedError):
-        C2.composite2_fwd_plain(*args, TILES_X, TS, B, blend_bf16=True)
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_plain_bf16_matches_pallas_forward_and_vjp(name):
+    """blend_bf16 at the limits flat_cases.py states, alpha as in float32,
+    beside the float32 blend."""
+    tab, counts, tile_ids, g_out, g_alpha = dense_case(name)
+    out_j, alpha_j, dtab_j = _jax_fwd_bwd(tab, counts, tile_ids, g_out,
+                                          g_alpha, blend_bf16=True)
+    out_t, alpha_t, dtab_t = torch_dense_fwd_bwd(tab, counts, tile_ids, g_out,
+                                                 g_alpha, blend_bf16=True)
+    out_f, _, dtab_f = torch_dense_fwd_bwd(tab, counts, tile_ids, g_out,
+                                           g_alpha)
+    np.testing.assert_allclose(alpha_t, alpha_j, atol=1e-5)
+    assert_bf16_rounds(out_t, dtab_t, out_f, dtab_f, out_j, dtab_j)

@@ -16,12 +16,17 @@ from fusionsense_tpu_torch.render.flat_composite import (
     _alpha_of_rows, _pixel_xy,
 )
 
-from flat_cases import B, C, CASES, P, T, TILES_X, TS, case, maps, torch_fwd_bwd
+from flat_cases import (
+    B, C, CASES, P, T, TILES_X, TS, assert_bf16_rounds, case, maps,
+    torch_fwd_bwd,
+)
 
 
-def _jax_fwd_bwd(tab, blk_tile, blk_first, blk_count, g_out, g_alpha):
+def _jax_fwd_bwd(tab, blk_tile, blk_first, blk_count, g_out, g_alpha,
+                 blend_bf16=False):
     args = [jnp.asarray(a) for a in (blk_tile, blk_first, blk_count, blk_tile)]
-    f = lambda t: pallas_flat.flat_composite(t, *args, T, TILES_X, TS, B)  # noqa: E731
+    f = lambda t: pallas_flat.flat_composite(  # noqa: E731
+        t, *args, T, TILES_X, TS, B, blend_bf16)
     (out, alpha), vjp = jax.vjp(f, jnp.asarray(tab))
     (dtab,) = vjp((jnp.asarray(g_out), jnp.asarray(g_alpha)))
     return np.asarray(out), np.asarray(alpha), np.asarray(dtab)
@@ -79,7 +84,7 @@ def test_stage_twins_compose_to_pallas(name):
     _, _, dtab_j = _jax_fwd_bwd(tab, bt, bf, bc, g_out, g_alpha)
     table, count = torch.tensor(tab), torch.tensor(bc)
     runs = FC.tile_runs(torch.tensor(bt), T)
-    delta, acc, _ = FC.fwd_blocks_plain(table, runs, count, TILES_X, TS, B)
+    delta, acc, _, _ = FC.fwd_blocks_plain(table, runs, count, TILES_X, TS, B)
     carry, live, logt = FC.fwd_scan_plain(delta, runs, count)
     out = FC.fwd_combine_plain(acc, carry, live, runs)
     owned = np.isin(np.arange(T + 1), bt)
@@ -157,22 +162,25 @@ def test_cull_marks_only_rows_of_zero_alpha():
     assert got[0, 0] and not got[0, 1:4].any()
     # fwd_blocks reports the rows it keeps: B less the culled ones, in the
     # blocks it composites
-    _, _, kept = FC.fwd_blocks_plain(table, runs, torch.tensor(bc), TILES_X,
+    _, _, kept, _ = FC.fwd_blocks_plain(table, runs, torch.tensor(bc), TILES_X,
                                      TS, B)
     want = np.where(bc > 0, B - cull.sum(dim=1).numpy(), 0)
     np.testing.assert_array_equal(kept.numpy(), want)
     assert kept.dtype == torch.int32 and (kept[torch.tensor(bc) > 0] < B).any()
 
 
-def test_blend_bf16_raises():
-    tab, bt, _, bc, _, _ = case("mixed")
-    blk = [torch.tensor(a) for a in (bt, bc)]
-    with pytest.raises(NotImplementedError):
-        FC.flat_composite(torch.tensor(tab), *blk, T, TILES_X, TS, B, True)
-    runs = FC.tile_runs(blk[0], T)
-    with pytest.raises(NotImplementedError):
-        FC.flat_composite_fwd_plain(torch.tensor(tab), runs, blk[1], T,
-                                    TILES_X, TS, B, blend_bf16=True)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_bf16_matches_pallas_forward_and_vjp(name):
+    """blend_bf16 at the limits flat_cases.py states, alpha as in float32,
+    beside the float32 blend."""
+    tab, bt, bf, bc, g_out, g_alpha = case(name)
+    out_j, alpha_j, dtab_j = _jax_fwd_bwd(tab, bt, bf, bc, g_out, g_alpha,
+                                          blend_bf16=True)
+    out_t, alpha_t, dtab_t = torch_fwd_bwd(tab, bt, bc, g_out, g_alpha,
+                                           blend_bf16=True)
+    out_f, _, dtab_f = torch_fwd_bwd(tab, bt, bc, g_out, g_alpha)
+    np.testing.assert_allclose(alpha_t, alpha_j, atol=1e-5)
+    assert_bf16_rounds(out_t, dtab_t, out_f, dtab_f, out_j, dtab_j)
 
 
 def test_tile_runs_cover_every_block():

@@ -1,8 +1,9 @@
 """The port stands alone: no module of fusionsense_tpu_torch, nor
-chip_smoke.py or bench_torch.py, imports jax, jaxlib or fusionsense_tpu; none imports Pillow
-or scikit-learn at module level, and none imports scikit-learn at all (the
-card's machine has none); its entry points run on the card by default and
-raise when none is there."""
+chip_smoke.py, bench_torch.py or full_schedule_torch.py, imports jax,
+jaxlib or fusionsense_tpu; none imports Pillow or scikit-learn at module
+level, and none imports scikit-learn at all (the card's machine has none);
+its entry points run on the card by default and raise when none is
+there."""
 import ast
 from pathlib import Path
 
@@ -14,7 +15,8 @@ from fusionsense_tpu_torch import device as D
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "fusionsense_tpu")
 FILES = sorted((ROOT / "fusionsense_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+    ROOT / "full_schedule_torch.py"]
 
 
 def _imports(path: Path):
@@ -121,3 +123,31 @@ def test_pipeline_and_cli_default_to_the_card(monkeypatch, tmp_path):
         ReconstructionPipeline(PipelineConfig())
     with pytest.raises(RuntimeError):
         CLI.main(["--data", str(tmp_path), "--mesh"])
+
+
+def test_mesh_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """fs-mesh, fs-eval, the Poisson solve and full_schedule_torch.py
+    resolve their device before touching a file: without a card they
+    raise."""
+    import sys
+
+    import numpy as np
+
+    from fusionsense_tpu_torch.cli import eval as CLIE
+    from fusionsense_tpu_torch.cli import mesh as CLIM
+    from fusionsense_tpu_torch.mesh.poisson import poisson_reconstruct
+
+    sys.path.insert(0, str(ROOT))
+    import full_schedule_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError):
+        CLIM.main(["tsdf", "--checkpoint", missing, "--data", missing])
+    with pytest.raises(RuntimeError):
+        CLIE.main(["--checkpoint", missing, "--data", missing])
+    with pytest.raises(RuntimeError):
+        poisson_reconstruct(np.random.RandomState(0).rand(20, 3),
+                            np.ones((20, 3)))
+    with pytest.raises(RuntimeError):
+        full_schedule_torch.main(["--out", str(tmp_path / "o.json")])

@@ -96,7 +96,7 @@ def test_stages_match_plain_on_card(card, name):
             return got, pair(got, want)
         return got, [pair(k, p) for k, p in zip(got, want)]
 
-    (delta, acc, _), ((d, d_p), (a, a_p), (n, n_p)) = both(
+    (delta, acc, _, _), ((d, d_p), (a, a_p), (n, n_p), _) = both(
         "fwd_blocks", table, runs, count, *geo)
     np.testing.assert_allclose(np.exp(d), np.exp(d_p), atol=1e-6, rtol=0)
     np.testing.assert_allclose(a, a_p, atol=1e-5, rtol=0)
@@ -172,8 +172,8 @@ def test_dense_stages_match_plain_on_card(card, name):
         cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
         return got, getattr(C2, f"{stage}_plain")(*cpu)
 
-    (delta, acc), (delta_p, acc_p) = both("fwd_chunks", table, counts, ids,
-                                          *geo)
+    (delta, acc, _), (delta_p, acc_p, _) = both("fwd_chunks", table, counts,
+                                                ids, *geo)
     done = (torch.arange(nc)[None, :]
             < C2.n_chunks(counts.cpu(), B, nc)[:, None])
     np.testing.assert_allclose(torch.exp(delta.cpu()[done]).numpy(),
@@ -458,6 +458,70 @@ def test_step_and_fused_interval_make_no_host_sync(card):
     assert tr.step == 150
 
 
+# the blend_bf16 branch (ROADMAP N5) on the card against the plain twins
+# on the CPU, at the float32 limits of the tests above. The kernel and the
+# twin each round w after forming it from alpha and a prefix sum whose last
+# bits they compute in their own order, so a w near a rounding boundary can
+# land on the neighbouring bf16 value. So at most BF16_FLIP_FRAC of the
+# elements of out and of dtab may pass the float32 limit, none by more than
+# one bf16 ulp (2^-8) of a unit channel or of the column's scale; and the
+# float32 kernel must lie at least BF16_SEEN times farther from the twin in
+# mean |d| (in every column of dtab). chip_smoke.py's rule, with a share
+# and a factor sized for these small cases (one flipped element of out is
+# 1/12,288 of it).
+BF16_ULP, BF16_FLIP_FRAC, BF16_SEEN = 4e-3, 1e-2, 4.0
+
+
+def assert_bf16_close(got, want, f32, limit, columns=False):
+    """got (the bf16 kernel's) against want (the bf16 twin's) by the rule
+    above, f32 the float32 kernel's on the same inputs; |d| absolute, or
+    over each column's (last dimension's) max |want| with `columns`."""
+    width = got.shape[-1] if columns else 1
+    got, want, f32 = (np.reshape(x, (-1, width)) for x in (got, want, f32))
+    f32 = np.where(np.isfinite(want), f32, 0.0)
+    got, want = finite_part(got, want)
+    scale = np.abs(want).max(axis=0) if columns else np.ones(1)
+    scale = np.maximum(scale, 1e-30)
+    d, d32 = np.abs(got - want) / scale, np.abs(f32 - want) / scale
+    assert (d > limit).mean() <= BF16_FLIP_FRAC, (d > limit).mean()
+    assert d.max() <= BF16_ULP, d.max()
+    seen = d32.mean(axis=0) / np.maximum(d.mean(axis=0), 1e-30)
+    assert np.all(seen >= BF16_SEEN), seen.tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bf16_kernels_match_plain_on_card(card, name):
+    tab, bt, _, bc, g_out, g_alpha = case(name)
+    args = (tab, bt, bc, g_out, g_alpha)
+    FC.reset_launch_counts()
+    got = torch_fwd_bwd(*args, device=card, blend_bf16=True)
+    assert FC.LAUNCHES["flat_composite_fwd"] == 1
+    assert FC.LAUNCHES["flat_composite_bwd"] == 1
+    want = torch_fwd_bwd(*args, device="cpu", blend_bf16=True)
+    f32 = torch_fwd_bwd(*args, device=card)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-6, rtol=0)
+    assert np.isnan(got[2]).any() == np.isnan(want[2]).any()
+    assert_bf16_close(got[0], want[0], f32[0], 1e-5)
+    assert_bf16_close(got[2], want[2], f32[2], 1e-4, columns=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_bf16_dense_kernels_match_plain_on_card(card, name):
+    args = dense_case(name)
+    C2.reset_launch_counts()
+    got = torch_dense_fwd_bwd(*args, device=card, blend_bf16=True)
+    assert C2.LAUNCHES["composite2_fwd"] == 1
+    assert C2.LAUNCHES["composite2_bwd"] == 1
+    want = torch_dense_fwd_bwd(*args, device="cpu", blend_bf16=True)
+    f32 = torch_dense_fwd_bwd(*args, device=card)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-6, rtol=0)
+    assert np.isnan(got[2]).any() == np.isnan(want[2]).any()
+    assert_bf16_close(got[0], want[0], f32[0], 1e-5)
+    assert_bf16_close(got[2], want[2], f32[2], 1e-4, columns=True)
+
+
 def test_cpu_tensors_take_the_plain_version():
     FC.reset_launch_counts()
     tab, bt, _, bc, g_out, g_alpha = case("mixed")
@@ -508,12 +572,12 @@ def test_stage_wrappers_refuse_cpu_tensors():
     tab, bt, _, bc, _, _ = case("mixed")
     table, count = torch.tensor(tab), torch.tensor(bc)
     runs = FC.tile_runs(torch.tensor(bt), T)
-    delta, acc, _ = FC.fwd_blocks_plain(table, runs, count, TILES_X, TS, B)
+    delta, acc, _, _ = FC.fwd_blocks_plain(table, runs, count, TILES_X, TS, B)
     carry, live, logt = FC.fwd_scan_plain(delta, runs, count)
     g = torch.zeros((T + 1, C, P))
     S = FC.bwd_suffix_plain(acc, carry, live, runs, g)
     tab_d, counts, ids, _, _ = (torch.tensor(a) for a in dense_case("mixed"))
-    delta_d, acc_d = C2.fwd_chunks_plain(tab_d, counts, ids, TILES_X, TS, B)
+    delta_d, acc_d, _ = C2.fwd_chunks_plain(tab_d, counts, ids, TILES_X, TS, B)
     _, logt_d, carries, nused = C2.fwd_combine_plain(delta_d, acc_d, counts, B)
     g_d = torch.zeros((T, C, P))
     S_d = C2.bwd_suffix_plain(acc_d, carries, nused, g_d)

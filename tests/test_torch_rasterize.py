@@ -119,20 +119,26 @@ def _grads_t(sc, cam, cfg, target):
             for g, x in zip(gs, ts + [tap, abst])]
 
 
-def _backward_matches_jax(kw):
+def _grads_both(kw, kw_t=None):
+    """The gradients of both packages' loss on one scene, JAX's with `kw`
+    and the port's with `kw_t` (default `kw`), as numpy."""
     sc = scene(1, n=15)
     cj, ct = cams(32, 32)
     target = jnp.full((32, 32, 3), 0.4)
     cfg_j = dataclasses.replace(CFG_J, **kw)
-    cfg_t = dataclasses.replace(CFG_T, **kw)
+    cfg_t = dataclasses.replace(CFG_T, **(kw if kw_t is None else kw_t))
     tap = jnp.zeros((15, 2))
     g_j = jax.jit(jax.grad(_loss_j(cfg_j, cj, target),
                            argnums=tuple(range(7))))(
         *[jnp.asarray(a) for a in sc], tap, tap)
-    g_t = _grads_t(sc, ct, cfg_t, target)
+    return _grads_t(sc, ct, cfg_t, target), [np.asarray(g) for g in g_j]
+
+
+def _backward_matches_jax(kw):
+    g_t, g_j = _grads_both(kw)
     for a, b in zip(g_t, g_j):
         assert np.all(np.isfinite(a))
-        np.testing.assert_allclose(a, np.asarray(b), atol=1e-4, rtol=2e-2)
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=2e-2)
 
 
 @pytest.mark.parametrize("transpose", ["landing", "scatter"])
@@ -162,9 +168,40 @@ def test_flat_grad_transpose_scatter_matches_landing():
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(blend_bf16=True),
-                                dict(backend="pallas", blend_bf16=True),
-                                dict(backend="other"),
+# blend_bf16 through the whole rasterizer on the CPU, against Pallas
+# interpret mode: this scene's tiles each fit in one block, so the twins
+# round the w that Pallas rounds. The forward holds at the float32 limits
+# (the twins read rgb 0, depth 3.0e-5; the float32 blend rgb 2.5e-3, depth
+# 1.4e-2), each gradient array within 2e-5 of its largest |g| (the twins
+# read up to 3.6e-6, the float32 gradients at least 1.0e-3 in every array).
+TOL_BF16_GRAD_REL = 2e-5
+
+
+@pytest.mark.parametrize("backend", ["flat", "pallas"])
+def test_blend_bf16_forward_matches_jax(backend):
+    kw = dict(backend=backend, blend_bf16=True)
+    out_j, out_t = both(scene(0), 64, 48, kw)
+    _close_fwd(out_j, out_t)
+    _, out_f = both(scene(0), 64, 48, dict(backend=backend))
+    for name, atol in (("rgb", 3e-4), ("depth", 3e-3)):
+        err_f = np.abs(getattr(out_f, name).numpy()
+                       - np.asarray(getattr(out_j, name))).max()
+        assert err_f > atol, (name, err_f)   # the rounding is taken
+
+
+@pytest.mark.parametrize("backend", ["flat", "pallas"])
+def test_blend_bf16_backward_matches_jax(backend):
+    kw = dict(backend=backend, blend_bf16=True)
+    g_t, g_j = _grads_both(kw)
+    g_f, _ = _grads_both(kw, dict(backend=backend))
+    for a, b, f in zip(g_t, g_j, g_f):
+        assert np.all(np.isfinite(a))
+        scale = np.abs(b).max()
+        assert np.abs(a - b).max() <= TOL_BF16_GRAD_REL * scale
+        assert np.abs(f - b).max() > TOL_BF16_GRAD_REL * scale
+
+
+@pytest.mark.parametrize("kw", [dict(backend="other"),
                                 dict(flat_grad_transpose="other")])
 def test_options_off_the_slice_raise(kw):
     sc = scene(0, n=5)

@@ -550,13 +550,3 @@ def test_sdf_and_camera_opt_train(fixture):
     torch.testing.assert_close(parts["sdf"], SDT.sdf_loss(
         pts, m, q, sc, o, st_t.alive, out_depth, cam))
 
-
-def test_off_slice_options_raise(fixture):
-    """What is left unported raises, naming its ROADMAP item."""
-    cams_t, data_t, st_t = _torch_side(fixture)
-    cfg = _cfg(CFT, RCT)
-    bf16 = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, rasterize=dataclasses.replace(cfg.model.rasterize,
-                                                 blend_bf16=True)))
-    with pytest.raises(NotImplementedError, match="N5"):
-        TRT.Trainer(bf16, cams_t, data_t, st_t, device="cpu")
