@@ -98,12 +98,32 @@ Phases (any failure exits non-zero and prints no result):
     included); ms/step over two timed windows beside the eager step; a
     profiled interval: device kernels, host launch calls and busy share
     per step;
-13. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+13. the monocular priors on phase 11's capture (a copy): DSINE
+    (EfficientNet-B5), Metric3D (ViT-S, 4 registers) and Depth-Anything
+    (ViT-S) at their default widths, each from a seeded random state dict
+    written as its published file is wrapped and loaded back through the
+    port's load_*_checkpoint; generate_priors with Metric3D depth and DSINE
+    normals over every frame, the artifacts read back (depth finite in
+    Metric3D's [0, 300] m clamp, normals unit within 1e-3, transforms.json
+    patched); Depth-Anything's depth aligned onto the sensor depth
+    (align_mono_depths: finite, closer to the sensor than before); for view
+    0 of each net the card against the same net and weights on the CPU
+    (max |d| and the share of pixels past PRIOR_NORMAL_ATOL /
+    PRIOR_DEPTH_RTOL; at most PRIOR_FRAC), and again with TF32 allowed
+    (reported only); ms per frame and peak memory;
+14. fs-render on phase 11's last checkpoint (a copy with pose deltas):
+    dataset (train split, the deltas applied) with --backend pallas,
+    interpolate with jax, spiral with flat, camera-path (a camera_path.json
+    through three capture poses) with pallas; each mode's K1/K3 launches
+    counted (nonzero where its backend has a kernel, no other kernel and
+    no plain twin), every PNG read back at 640x480; the dataset renders
+    masked by the capture's masks (eval.mask_render.mask_images);
+15. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
     fusionsense path's post-refine shape; launches those of every path
-    that runs the kernel, graph replays and the mesh renders included;
-    errors the largest of every check; the blend_bf16 branch's times and
-    error beside the float32 ones), the card line, and last the result
-    line.
+    that runs the kernel, graph replays, the mesh renders and fs-render's
+    renders included; errors the largest of every check; the blend_bf16
+    branch's times and error beside the float32 ones), the card line, and
+    last the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -180,6 +200,19 @@ TOL_FUSED_PSNR = 0.05
 # meshes against N_SPHERE points of the scene's GT sphere (radius 0.5), as
 # full_schedule_torch.py measures it
 MESH_RES, N_SPHERE = 192, 20_000
+# the priors phase: DSINE, Metric3D and Depth-Anything at their default
+# (published) widths with seeded random weights (weights.random_state_dict
+# at a deep net's scale), on the pipeline phase's capture. Card against CPU
+# on view 0: a pixel is past the limit where its normal moves by more than
+# PRIOR_NORMAL_ATOL or its depth (inverse depth) by more than
+# PRIOR_DEPTH_RTOL of itself; at most PRIOR_FRAC of the pixels may be.
+PRIOR_SEED = 0
+PRIOR_NORMAL_ATOL, PRIOR_DEPTH_RTOL, PRIOR_FRAC = 1e-3, 1e-3, 1e-3
+PRIOR_UNIT_TOL = 1e-3      # | |n| - 1 | of every stored normal
+PRIOR_DEPTH_CLAMP = 300.0  # Metric3D's clamp, metres (wrapper.py)
+DA_BIAS_LIFT = 1.0         # Depth-Anything's last bias, so its ReLU passes
+# the render phase: frames of the interpolate and spiral modes
+RENDER_FRAMES = 8
 
 
 def log(msg):
@@ -1366,8 +1399,8 @@ def mesh_path(torch, tr, tr_flat, cams, counters, card):
 
 def installations():
     """Whether Pillow, scipy, scikit-learn and imageio import here (the
-    port's path needs Pillow and scipy; fs-render's --video, not ported
-    yet, would need imageio)."""
+    port's path needs Pillow and scipy; fs-render's --video, which this
+    script does not pass, needs imageio)."""
     import importlib
 
     found = {}
@@ -1626,6 +1659,412 @@ def pipeline_path(torch, dev, counters, card):
     return launches, errs
 
 
+def _event_ms(torch, fn, n=3):
+    """Mean CUDA-event ms of fn() over n calls after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _past_limit(got, want, kind):
+    """(max |got - want|, share of pixels past the phase's limit)."""
+    import numpy as np
+
+    d = np.abs(got - want)
+    if kind == "normal":
+        past = d.max(-1) > PRIOR_NORMAL_ATOL
+    else:
+        past = d > PRIOR_DEPTH_RTOL * np.abs(want)
+    return float(d.max()), float(past.mean())
+
+
+def prior_nets(torch, dev, out):
+    """The three prior nets at their default widths: one seeded state dict
+    each, written as the published file wraps it and loaded back through
+    the port's load_*_checkpoint, once for the card and once for the CPU.
+    Returns {name: (card predictor, CPU predictor)}."""
+    from fusionsense_tpu_torch.priors import weights as PW
+    from fusionsense_tpu_torch.priors.depth_anything import (
+        DAConfig, DepthAnything, DepthAnythingModel,
+    )
+    from fusionsense_tpu_torch.priors.depth_anything.convert import (
+        load_da_checkpoint,
+    )
+    from fusionsense_tpu_torch.priors.dsine import DSINE, DSinePredictor
+    from fusionsense_tpu_torch.priors.dsine.convert import load_dsine_checkpoint
+    from fusionsense_tpu_torch.priors.dsine.model import DSINEConfig
+    from fusionsense_tpu_torch.priors.metric3d import (
+        M3DConfig, Metric3D, Metric3DPredictor,
+    )
+    from fusionsense_tpu_torch.priors.metric3d.convert import (
+        load_metric3d_checkpoint,
+    )
+
+    specs = {
+        "dsine": (lambda: DSINE(DSINEConfig()), "model",
+                  load_dsine_checkpoint,
+                  lambda net, d: DSinePredictor(net, device=d)),
+        "metric3d": (lambda: Metric3D(M3DConfig()), "model_state_dict",
+                     load_metric3d_checkpoint,
+                     lambda net, d: Metric3DPredictor(net, device=d)),
+        "depth_anything": (lambda: DepthAnything(DAConfig()), "state_dict",
+                           load_da_checkpoint,
+                           lambda net, d: DepthAnythingModel(net, device=d)),
+    }
+    preds = {}
+    for i, (name, (make, wrap, load, predictor)) in enumerate(specs.items()):
+        sd = PW.random_state_dict(make(), seed=PRIOR_SEED + i, std=None)
+        if name == "depth_anything":
+            sd["depth_head.scratch.output_conv2.2.bias"] += DA_BIAS_LIFT
+        path = out / f"{name}.pt"
+        torch.save({wrap: sd}, path)
+        preds[name] = (predictor(load(str(path)), dev),
+                       predictor(load(str(path)), "cpu"))
+        log(f"priors: {name} {sum(v.numel() for v in sd.values()) / 1e6:.2f} M "
+            f"parameters, loaded from {path.name}")
+    return preds
+
+
+def _tf32_everywhere():
+    """The predictors' nets with TF32 allowed in cuDNN convolutions and
+    matmuls (the phase allows both flags): their full_float32 context
+    replaced by a no-op. Returns an undo function."""
+    import contextlib
+
+    from fusionsense_tpu_torch.priors.depth_anything import predictor as PA
+    from fusionsense_tpu_torch.priors.dsine import predictor as PD
+    from fusionsense_tpu_torch.priors.metric3d import predictor as PM
+
+    mods = (PA, PD, PM)
+    saved = [m.full_float32 for m in mods]
+    for m in mods:
+        m.full_float32 = contextlib.nullcontext
+
+    def undo():
+        for m, f in zip(mods, saved):
+            m.full_float32 = f
+    return undo
+
+
+def priors_path(torch, dev, card, capture):
+    """The monocular priors (phase 13) on the pipeline phase's capture:
+    generate_priors with Metric3D depth and DSINE normals over every frame
+    (the artifacts read back), Depth-Anything's depth aligned onto the
+    sensor depth by align_mono_depths, and for view 0 of each net the card
+    against the CPU (the predictors' float32, and with TF32 allowed), ms
+    per frame and peak memory. TF32 is allowed for the phase in cuDNN's
+    convolutions (PyTorch's default) and in CUDA matmuls, so the
+    predictors' own float32 context is what is measured."""
+    import shutil
+
+    import numpy as np
+
+    from fusionsense_tpu_torch.data.dataparser import load_depth, load_rgb
+    from fusionsense_tpu_torch.priors.depth_align import align_mono_depths
+    from fusionsense_tpu_torch.priors.mono_priors import generate_priors
+
+    out = SCRATCH / "priors"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    scene = out / "scene"
+    shutil.copytree(capture, scene)
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        preds = prior_nets(torch, dev, out)
+        dsine, m3d, da = (preds[k] for k in ("dsine", "metric3d",
+                                             "depth_anything"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = generate_priors(scene, depth_model=m3d[0], normal_model=dsine[0],
+                               device=dev)
+        gen_s = time.perf_counter() - t0
+        frames = meta["frames"]
+        depths = [np.load(scene / fr["mono_depth_file_path"]) for fr in frames]
+        normals = [np.load(scene / fr["normal_file_path"]) for fr in frames]
+        patched = json.loads((scene / "transforms.json").read_text())["frames"]
+        d_all, n_all = np.stack(depths), np.stack(normals)
+        unit = float(np.abs(np.linalg.norm(n_all, axis=-1) - 1).max())
+        log(f"priors: generate_priors over {len(frames)} frames at "
+            f"{WIDTH}x{HEIGHT} (Metric3D depth, DSINE normals): {gen_s:.3f} s, "
+            f"{1e3 * gen_s / len(frames):.1f} ms/frame; depth {d_all.shape} "
+            f"in [{d_all.min():.4f}, {d_all.max():.4f}] m, normals "
+            f"{n_all.shape} | |n| - 1 | <= {unit:.2e}; {card}")
+        if not (len(patched) == len(frames) and all(
+                "mono_depth_file_path" in f and "normal_file_path" in f
+                for f in patched)):
+            raise RuntimeError("priors: transforms.json was not patched")
+        if not (d_all.shape == (len(frames), HEIGHT, WIDTH)
+                and n_all.shape == (len(frames), HEIGHT, WIDTH, 3)
+                and np.isfinite(d_all).all() and d_all.min() >= 0
+                and d_all.max() <= PRIOR_DEPTH_CLAMP and unit <= PRIOR_UNIT_TOL):
+            raise RuntimeError("priors: an artifact is out of its range")
+
+        # Depth-Anything's depth aligned onto the sensor depth
+        fx = frames[0].get("fl_x", meta.get("fl_x"))
+        rgbs = [load_rgb(scene / fr["file_path"]) for fr in frames]
+        sensor = np.stack([load_depth(scene / fr["depth_file_path"])
+                           for fr in frames])
+        mono = np.stack([da[0].predict_depth(rgb, fx) for rgb in rgbs])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aligned = align_mono_depths(mono, sensor, device=dev)
+        torch.cuda.synchronize()
+        align_s = time.perf_counter() - t0
+        aligned = aligned.cpu().numpy()
+        valid = sensor > 0.1
+        before = float(np.median(np.abs(mono - sensor)[valid] / sensor[valid]))
+        after = float(np.median(np.abs(aligned - sensor)[valid] / sensor[valid]))
+        log(f"priors: align_mono_depths of Depth-Anything's depth onto the "
+            f"sensor depth, {len(frames)} frames: {align_s:.3f} s; median "
+            f"|d - sensor| / sensor {before:.4f} -> {after:.4f}")
+        if not (np.isfinite(aligned).all() and aligned.shape == sensor.shape
+                and after < before):
+            raise RuntimeError("priors: the aligned depth is not finite or "
+                               "not closer to the sensor")
+
+        # view 0: card against CPU, TF32 off (the predictors') and allowed
+        rgb0 = rgbs[0]
+        calls = {"dsine normals": (dsine, lambda p: p.predict_normals(rgb0),
+                                   "normal"),
+                 "metric3d depth": (m3d, lambda p: p.predict_depth(rgb0, fx),
+                                    "depth"),
+                 "metric3d normals": (m3d, lambda p: p.predict_normals(rgb0),
+                                      "normal"),
+                 "depth_anything inverse": (
+                     da, lambda p: p.predict_inverse(rgb0), "depth")}
+        cpu = {k: f(pair[1]) for k, (pair, f, _) in calls.items()}
+        gaps, tf32 = {}, {}
+        for k, (pair, f, kind) in calls.items():
+            gaps[k] = _past_limit(f(pair[0]), cpu[k], kind)
+        undo = _tf32_everywhere()
+        try:
+            for k, (pair, f, kind) in calls.items():
+                tf32[k] = _past_limit(f(pair[0]), cpu[k], kind)
+        finally:
+            undo()
+        for k in calls:
+            log(f"priors view 0, card vs CPU, {k}: float32 max |d| "
+                f"{gaps[k][0]:.3e}, past the limit {gaps[k][1]:.2e}; with "
+                f"TF32 max |d| {tf32[k][0]:.3e}, past {tf32[k][1]:.2e}")
+
+        # ms per frame (the predictor call, host pre/post included) and of
+        # the net's forward alone at the input the predictor gives it, and
+        # peak memory
+        from fusionsense_tpu_torch.priors.depth_anything.predictor import (
+            da_input_size,
+        )
+        from fusionsense_tpu_torch.priors.tf32 import full_float32
+
+        g = torch.Generator(device=dev).manual_seed(0)
+        img = lambda h, w: torch.randn((1, 3, h, w), device=dev,  # noqa: E731
+                                       generator=g)
+        K0 = torch.eye(3, device=dev)[None] * 500.0
+        K0[:, 2, 2] = 1.0
+        for name, (pair, fn, fwd) in {
+                "dsine": (dsine, lambda p: p.predict_normals(rgb0),
+                          (img(HEIGHT + (-HEIGHT) % 32, WIDTH + (-WIDTH) % 32),
+                           K0)),
+                "metric3d": (m3d, lambda p: p.predict_depth(rgb0, fx),
+                             (img(*m3d[0].input_size),)),
+                "depth_anything": (da, lambda p: p.predict_depth(rgb0, fx),
+                                   (img(*da_input_size(HEIGHT, WIDTH)),))
+        }.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _event_ms(torch, lambda: fn(pair[0]))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            with torch.inference_mode(), full_float32():
+                net_ms = cuda_ms(lambda: pair[0].net(*fwd), 3, 1)
+            t0 = time.perf_counter()
+            fn(pair[1])
+            cpu_ms = 1e3 * (time.perf_counter() - t0)
+            log(f"priors {name}: {ms:.2f} ms/frame on the card (event "
+                f"timed, host pre/post included), the net's forward at "
+                f"{tuple(fwd[0].shape[2:])} {net_ms:.2f} ms; {cpu_ms:.0f} ms "
+                f"on the CPU; peak {peak:.3f} GB; {card}")
+        bad = {k: v for k, v in gaps.items() if v[1] > PRIOR_FRAC}
+        if bad:
+            raise RuntimeError(f"priors: card and CPU disagree past the "
+                               f"limits: {bad}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _camera_path_file(scene, path, picks=(0, 3, 6)):
+    """A nerfstudio camera_path.json through capture frames `picks`, in the
+    capture's own (raw, OpenGL) frame, each at the capture's vertical fov."""
+    import numpy as np
+
+    meta = json.loads((scene / "transforms.json").read_text())
+    frames = []
+    for i in picks:
+        fr = meta["frames"][i % len(meta["frames"])]
+        fy = fr.get("fl_y", meta.get("fl_y"))
+        fov = math.degrees(2 * math.atan(HEIGHT / (2 * fy)))
+        frames.append({"camera_to_world": np.asarray(
+            fr["transform_matrix"], float).reshape(-1).tolist(), "fov": fov})
+    path.write_text(json.dumps({"camera_path": frames}))
+    return len(frames)
+
+
+def _render_vs_plain(torch, argv, dev, png):
+    """View 0 of an fs-render run through K1 or K3, against the same view
+    rendered with the compositor's plain version (FC.flat_composite_fwd /
+    C2.composite2_fwd swapped for their _plain twins) on the same card
+    tensors: the same checkpoint, camera, projection and bins. rgb, normal
+    and alpha are held at TOL_OUT; depth through the compositor's own
+    channel, the accumulated depth (expected depth x max(alpha, 1e-3)),
+    since the expected depth divides a float32 difference by alphas down to
+    1e-3. fs-render's RGB PNG of view 0 must equal the kernel render
+    quantised as fs-render writes it. Returns the max |d| by output and
+    the PNG's largest level difference."""
+    import numpy as np
+
+    from fusionsense_tpu_torch.cli.render import build_parser, render_inputs
+    from fusionsense_tpu_torch.data.image_io import read_image
+    from fusionsense_tpu_torch.eval.evaluator import make_render_fn
+    from fusionsense_tpu_torch.render import composite2 as C2
+    from fusionsense_tpu_torch.render import flat_composite as FC
+    from fusionsense_tpu_torch.render.rasterize import RasterizeConfig
+    from fusionsense_tpu_torch.train.checkpoint import checkpoint_sh_degree
+
+    args = build_parser().parse_args(argv)
+    g, cam = render_inputs(args, dev)
+    cfg = RasterizeConfig(backend=args.backend,
+                          sh_degree=checkpoint_sh_degree(g))
+    kern = make_render_fn(cfg, cam)(g, 0)
+    saved = FC.flat_composite_fwd, C2.composite2_fwd
+    FC.flat_composite_fwd = FC.flat_composite_fwd_plain
+    C2.composite2_fwd = C2.composite2_fwd_plain
+    try:
+        plain = make_render_fn(cfg, cam)(g, 0)
+    finally:
+        FC.flat_composite_fwd, C2.composite2_fwd = saved
+    acc = lambda o: o.depth * torch.clamp_min(o.alpha, 1e-3)  # noqa: E731
+    errs = {f: float((getattr(kern, f) - getattr(plain, f)).abs().max())
+            for f in ("rgb", "normal", "alpha")}
+    errs["depth (accumulated)"] = float((acc(kern) - acc(plain)).abs().max())
+    errs["depth (expected)"] = float((kern.depth - plain.depth).abs().max())
+    want = (np.clip(kern.rgb.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    levels = int(np.abs(read_image(png).astype(np.int32) - want).max())
+    return errs, levels
+
+
+def render_path(torch, dev, counters, card, capture, ckpt):
+    """fs-render in the port (phase 14) on the pipeline phase's last
+    checkpoint: dataset mode (train split, with pose deltas written into a
+    copy of the checkpoint) through K3, interpolate through the plain
+    compositor, spiral through K1, camera-path through K3; the launches of
+    each mode counted; every PNG read back; view 0 of each kernel mode held
+    against the plain compositor on the same inputs (_render_vs_plain); the
+    dataset renders masked by the capture's masks (eval.mask_render).
+    Returns the K1 and K3 launches."""
+    import shutil
+
+    import numpy as np
+
+    from fusionsense_tpu_torch.cli.render import main as fs_render
+    from fusionsense_tpu_torch.data.dataparser import (
+        DataParserConfig, parse_transforms,
+    )
+    from fusionsense_tpu_torch.data.image_io import read_image
+    from fusionsense_tpu_torch.eval.mask_render import mask_images
+    from fusionsense_tpu_torch.train.checkpoint import (
+        load_checkpoint_full, save_checkpoint,
+    )
+    from fusionsense_tpu_torch.train.optim import init_adam
+
+    out = SCRATCH / "render"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    scene = parse_transforms(DataParserConfig(data_dir=str(capture)),
+                             device=dev)
+    n_train = len(scene.train_idx)
+    g, opt, stats, step, _, meta = load_checkpoint_full(ckpt, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    deltas = (2e-3 * torch.randn((n_train, 6), generator=gen)).to(dev)
+    ckpt_d = out / f"ckpt_{step}_deltas"
+    save_checkpoint(ckpt_d, g, opt, stats, step, extra=meta,
+                    cam_state=(deltas, init_adam({"deltas": deltas})))
+    n_path = _camera_path_file(capture, out / "camera_path.json")
+    runs = [("dataset", "pallas", [], n_train),
+            ("interpolate", "jax", ["--n-frames", str(RENDER_FRAMES)],
+             RENDER_FRAMES),
+            ("spiral", "flat", ["--n-frames", str(RENDER_FRAMES)],
+             RENDER_FRAMES),
+            ("camera-path", "pallas", ["--camera-path",
+                                       str(out / "camera_path.json")], n_path)]
+    kernel = {"pallas": "composite2_fwd", "flat": "flat_composite_fwd"}
+    total = {"composite2_fwd": 0, "flat_composite_fwd": 0}
+    for mode, backend, extra, want in runs:
+        d = out / mode
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = fs_render([mode, "--checkpoint", str(ckpt_d), "--data",
+                       str(capture), "--output-dir", str(d), "--backend",
+                       backend, *extra], device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+        pngs = {sub: sorted((d / sub).glob("*.png"))
+                for sub in ("rgb", "depth", "normal")}
+        shapes = {read_image(p).shape for ps in pngs.values() for p in ps}
+        k = kernel.get(backend)
+        log(f"fs-render {mode} --backend {backend}: {n} frames in {secs:.3f} "
+            f"s ({1e3 * secs / max(n, 1):.1f} ms/frame), PNGs "
+            f"{[len(v) for v in pngs.values()]} {sorted(shapes)}, "
+            f"{k or 'no kernel'} launches {launches.get(k, 0)}; {card}")
+        if not (n == want and all(len(v) == n for v in pngs.values())
+                and shapes == {(HEIGHT, WIDTH, 3)}):
+            raise RuntimeError(f"fs-render {mode}: {n} frames, PNGs "
+                               f"{[len(v) for v in pngs.values()]} {shapes}")
+        others = {key: v for key, v in launches.items() if key != k}
+        if any(others.values()) or (k and launches[k] < n):
+            raise RuntimeError(f"fs-render {mode} --backend {backend}: "
+                               f"launches {launches}")
+        if k:
+            total[k] += launches[k]
+            errs, levels = _render_vs_plain(
+                torch, [mode, "--checkpoint", str(ckpt_d), "--data",
+                        str(capture), "--backend", backend, *extra], dev,
+                d / "rgb" / "00000.png")
+            log(f"fs-render {mode} --backend {backend}, view 0 against the "
+                f"plain compositor on the same inputs: max|d| "
+                + ", ".join(f"{f} {v:.3e}" for f, v in errs.items())
+                + f"; the RGB PNG against the kernel render: {levels} levels")
+            held = {f: v for f, v in errs.items() if f != "depth (expected)"}
+            if max(held.values()) > TOL_OUT or levels:
+                raise RuntimeError(f"fs-render {mode} --backend {backend}: "
+                                   f"view 0 disagrees with the plain "
+                                   f"compositor or its PNG: {errs}, {levels}")
+
+    # the dataset renders, masked by the capture's masks of the same views
+    masks = out / "masks"
+    masks.mkdir()
+    for i, j in enumerate(scene.train_idx):
+        shutil.copy(scene.mask_paths[j], masks / f"{i:05d}.png")
+    n_masked = mask_images(out / "dataset" / "rgb", masks, out / "masked")
+    m0 = read_image(masks / "00000.png")
+    m0 = (m0[..., 0] if m0.ndim == 3 else m0) <= 127
+    bg = read_image(out / "masked" / "00000.png")[m0]
+    log(f"mask_images: {n_masked} dataset renders masked; view 0's "
+        f"background {m0.mean():.3f} of the pixels, all white: "
+        f"{bool((bg == 255).all())}")
+    if n_masked != n_train or not (bg == 255).all():
+        raise RuntimeError("mask_images: renders not masked")
+    return total
+
+
 def main():
     import torch
 
@@ -1743,7 +2182,16 @@ def main():
     fs_kernels[0]["launches"] += (mesh_launches["composite2_fwd"]
                                   + pipe_launches["cli_composite2_fwd"])
 
-    # 13. results
+    # 13. the monocular priors on the pipeline's capture
+    priors_path(torch, dev, card, SCRATCH / "blob")
+    # 14. fs-render on the pipeline's last checkpoint, K1 and K3 counted
+    render_launches = render_path(
+        torch, dev, (FC, C2), card, SCRATCH / "blob",
+        SCRATCH / "pipeline" / "dn_splatter" / f"ckpt_{PIPE_ITERS}")
+    kernels[0]["launches"] += render_launches["flat_composite_fwd"]
+    fs_kernels[0]["launches"] += render_launches["composite2_fwd"]
+
+    # 15. results
     print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """The port stands alone: no module of fusionsense_tpu_torch, nor
 chip_smoke.py, bench_torch.py or full_schedule_torch.py, imports jax,
-jaxlib or fusionsense_tpu; none imports Pillow or scikit-learn at module
-level, and none imports scikit-learn at all (the card's machine has none);
-its entry points run on the card by default and raise when none is
-there."""
+jaxlib, flax or fusionsense_tpu; none imports Pillow, imageio or
+scikit-learn at module level, and none imports scikit-learn at all (the
+card's machine has none); its entry points run on the card by default and
+raise when none is there."""
 import ast
 from pathlib import Path
 
@@ -13,7 +13,7 @@ import torch
 from fusionsense_tpu_torch import device as D
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "fusionsense_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "fusionsense_tpu")
 FILES = sorted((ROOT / "fusionsense_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
     ROOT / "full_schedule_torch.py"]
@@ -58,7 +58,8 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_pillow_or_sklearn_on_import(path):
     roots = lambda ms: {m.split(".")[0] for m in ms}  # noqa: E731
-    assert not roots(_module_level_imports(path)) & {"PIL", "sklearn"}, path
+    assert not roots(_module_level_imports(path)) & {"PIL", "sklearn",
+                                                     "imageio"}, path
     assert "sklearn" not in roots(_imports(path)), path
 
 
@@ -74,6 +75,7 @@ def test_module_level_matcher_skips_function_bodies(tmp_path):
 def test_matcher_uses_whole_module_names():
     assert _forbidden("fusionsense_tpu.render")
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
+    assert _forbidden("flax.linen")
     assert not _forbidden("fusionsense_tpu_torch.render")
 
 
@@ -151,3 +153,42 @@ def test_mesh_entry_points_default_to_the_card(monkeypatch, tmp_path):
                             np.ones((20, 3)))
     with pytest.raises(RuntimeError):
         full_schedule_torch.main(["--out", str(tmp_path / "o.json")])
+
+
+def test_render_batch_and_priors_default_to_the_card(monkeypatch, tmp_path):
+    """fs-render, run_batch, generate_priors, align_mono_depths, normals
+    from depth and each prior net's predictor resolve their device first:
+    without a card they raise."""
+    import numpy as np
+
+    from fusionsense_tpu_torch.cli import render as CLIR
+    from fusionsense_tpu_torch.eval.batch import BatchJob, run_batch
+    from fusionsense_tpu_torch.priors import depth_align, mono_priors
+    from fusionsense_tpu_torch.priors.depth_anything import (
+        DepthAnythingModel, DepthAnything, tiny_da,
+    )
+    from fusionsense_tpu_torch.priors.dsine import DSINE, DSinePredictor
+    from fusionsense_tpu_torch.priors.dsine.model import tiny_dsine
+    from fusionsense_tpu_torch.priors.metric3d import (
+        Metric3D, Metric3DPredictor, tiny_m3d,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError):
+        CLIR.main(["spiral", "--checkpoint", missing, "--data", missing])
+    with pytest.raises(RuntimeError):
+        run_batch([BatchJob(data_dir=missing)], output_dir=tmp_path / "b")
+    assert not (tmp_path / "b").exists()
+    with pytest.raises(RuntimeError):
+        mono_priors.generate_priors(missing)
+    with pytest.raises(RuntimeError):
+        depth_align.align_mono_depths(np.ones((1, 4, 4)), np.ones((1, 4, 4)))
+    with pytest.raises(RuntimeError):
+        mono_priors.NormalsFromDepth().predict_normals_from_depth(
+            np.ones((4, 4)), 1.0, 1.0, 2.0, 2.0)
+    for make in (lambda: DSinePredictor(DSINE(tiny_dsine())),
+                 lambda: DepthAnythingModel(DepthAnything(tiny_da())),
+                 lambda: Metric3DPredictor(Metric3D(tiny_m3d()))):
+        with pytest.raises(RuntimeError):
+            make()
