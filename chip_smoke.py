@@ -118,7 +118,17 @@ Phases (any failure exits non-zero and prints no result):
     counted (nonzero where its backend has a kernel, no other kernel and
     no plain twin), every PNG read back at 640x480; the dataset renders
     masked by the capture's masks (eval.mask_render.mask_images);
-15. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+15. fs-touch (touch mode) on phase 11's TSDF mesh and the resumed run's
+    high-grad cloud: the full-width GLIP detector (Swin-L, BERT-base, the
+    8-tower VLDyHead) from a seeded random state dict written as the
+    published .pth wraps it and loaded back through load_glip_checkpoint,
+    on the 10 z-buffer views at 800x800, superpoints by the cut-pursuit
+    library built from native/cutpursuit.cpp, the vote and the proposals;
+    the proposals file read back (TOUCH_QUOTA points, or as many as the
+    cloud has), no kernel launched; each stage's ms, the peak memory and
+    the seconds; view 0's GLIP outputs card against CPU at min_size 320;
+    the GLIP forward's stages timed at 800x800;
+16. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
     fusionsense path's post-refine shape; launches those of every path
     that runs the kernel, graph replays, the mesh renders and fs-render's
     renders included; errors the largest of every check; the blend_bf16
@@ -213,6 +223,20 @@ PRIOR_DEPTH_CLAMP = 300.0  # Metric3D's clamp, metres (wrapper.py)
 DA_BIAS_LIFT = 1.0         # Depth-Anything's last bias, so its ReLU passes
 # the render phase: frames of the interpolate and spiral modes
 RENDER_FRAMES = 8
+# the touch phase: fs-touch on the pipeline phase's TSDF mesh and the
+# resumed run's high-grad cloud, with the full-width GLIP detector on a
+# seeded random state dict (detection.convert.random_state_dict) and the
+# toy tokenizer of the parts' caption; the score threshold is low enough
+# for the random net's boxes to reach the vote. View 0's GLIP outputs at
+# min_size TOUCH_CPU_SIZE, card against CPU: an element is past the limit
+# where it moves by more than GLIP_REL of its array's largest |value|; at
+# most GLIP_FRAC of an array's elements may be. Set from the first reading
+# on the H100 (PERF.md): at most 3.4e-4 of the scale, with 22-33% of the
+# elements past 1e-4.
+TOUCH_SEED = 0
+TOUCH_PARTS = ("handle", "body", "base")
+TOUCH_QUOTA, TOUCH_THRESHOLD, TOUCH_CPU_SIZE = 10, 0.02, 320
+GLIP_REL, GLIP_FRAC = 1e-3, 1e-3
 
 
 def log(msg):
@@ -2065,6 +2089,199 @@ def render_path(torch, dev, counters, card, capture, ckpt):
     return total
 
 
+def _timed_each(torch, targets, times, results):
+    """Wrap each (owner, name) so that every call is timed, device
+    synchronised, into the list times[name], and its arguments and result
+    kept in results[name]. Returns the originals, to put back."""
+    saved = []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(_name, []).append(time.perf_counter() - t0)
+            results.setdefault(_name, []).append((a, out))
+            return out
+        setattr(owner, name, timed)
+    return saved
+
+
+def _glip_stages(torch, pred, image, enc):
+    """CUDA-event ms of the GLIP forward's stages on one preprocessed
+    image (as GLIPPredictor.run feeds them), with TF32 off."""
+    from fusionsense_tpu_torch.detection.anchors import pyramid_anchors
+    from fusionsense_tpu_torch.detection.model import _level_shapes
+    from fusionsense_tpu_torch.detection.postprocess import postprocess
+    from fusionsense_tpu_torch.priors.tf32 import full_float32
+
+    dev, net = pred.device, pred.net
+    ids, mask, pm = (torch.as_tensor(a, device=dev) for a in enc)
+    x = torch.from_numpy(image.transpose(2, 0, 1).copy()).to(dev)
+    hw = image.shape[:2]
+    with torch.inference_mode(), full_float32():
+        feats = net.backbone.body(x)
+        pyr = net.backbone.fpn(feats)
+        lang = net.language_backbone.body.model(ids, mask)
+        outs = net.rpn.head(pyr, lang, mask)
+        anchors = [torch.from_numpy(a).to(dev)
+                   for a in pyramid_anchors(_level_shapes(hw))]
+        return {
+            "Swin-L": _event_ms(torch, lambda: net.backbone.body(x)),
+            "FPN": _event_ms(torch, lambda: net.backbone.fpn(feats)),
+            "BERT": _event_ms(torch, lambda: net.language_backbone.body.model(
+                ids, mask)),
+            "VLDyHead": _event_ms(torch, lambda: net.rpn.head(pyr, lang, mask)),
+            "postprocess": _event_ms(torch, lambda: postprocess(
+                outs, anchors, pm, hw)),
+        }
+
+
+def touch_path(torch, dev, counters, card, mesh, high):
+    """fs-touch in the port (phase 15), touch mode, on a mesh and a
+    high-grad cloud: GLIP at full width from a seeded random state dict
+    written as the published file wraps it ({"model": ...}, "module."
+    prefixes) and loaded back by the CLI through load_glip_checkpoint, the
+    toy tokenizer's vocabulary as --glip-vocab. The proposals file is read
+    back; no kernel of K1-K4 may launch; each stage is timed; view 0's
+    GLIP outputs at min_size TOUCH_CPU_SIZE are held card against CPU, and
+    the forward's stages timed at fs-touch's 800x800."""
+    import shutil
+
+    import numpy as np
+
+    from fusionsense_tpu_torch import native
+    from fusionsense_tpu_torch.cli.touch import main as fs_touch
+    from fusionsense_tpu_torch.detection import GLIPModel, GLIPPredictor
+    from fusionsense_tpu_torch.detection import convert as GC
+    from fusionsense_tpu_torch.detection.model import (
+        build_caption, preprocess_image,
+    )
+    from fusionsense_tpu_torch.detection.tokenizer import WordPieceTokenizer
+    from fusionsense_tpu_torch.touch_select import partseg as PS
+    from fusionsense_tpu_torch.touch_select import select as SL
+    from fusionsense_tpu_torch.utils.ply import read_pcd
+
+    out = SCRATCH / "touch"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    sd = GC.random_state_dict(GLIPModel(), seed=TOUCH_SEED)
+    ckpt = out / "glip_random.pth"
+    torch.save({"model": {"module." + k: v for k, v in sd.items()}}, ckpt)
+    n_par = sum(v.numel() for v in sd.values())
+    del sd
+    tok = WordPieceTokenizer.toy([build_caption(list(TOUCH_PARTS))[0]])
+    vocab = out / "vocab.txt"
+    vocab.write_text("".join(f"{w}\n" for w in sorted(
+        tok.vocab, key=tok.vocab.get)))
+    log(f"touch: GLIP {n_par / 1e6:.2f} M parameters, random state dict "
+        f"written in {time.perf_counter() - t0:.2f} s; vocabulary "
+        f"{len(tok.vocab)} words")
+
+    times, results = {}, {}
+    saved = _timed_each(torch, [
+        (GC, "load_glip_checkpoint"), (SL, "sample_mesh_points"),
+        (PS, "render_views"), (GLIPPredictor, "detect"),
+        (PS, "superpoints"), (PS, "bbox_vote"), (SL, "fuse_part_ranks"),
+        (SL, "propose_touches")], times, results)
+    argv = ["--mode", "touch", "--mesh", str(mesh), "--high-grad", str(high),
+            "--parts", *TOUCH_PARTS, "--quota", str(TOUCH_QUOTA),
+            "--output", str(out / "touch_proposals.pcd"),
+            "--glip-checkpoint", str(ckpt), "--glip-vocab", str(vocab),
+            "--glip-threshold", str(TOUCH_THRESHOLD)]
+    try:
+        for c in counters:
+            c.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fs_touch(argv, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    n_high = len(read_pcd(high)["points"])
+    props = read_pcd(out / "touch_proposals.pcd")
+    dets = [r[1] for r in results["detect"]]
+    n_boxes = [len(d.labels) for d in dets]
+    part_idx = res.seg_part_idx
+    ms = {k: [1e3 * t for t in v] for k, v in times.items()}
+    glip = ms["detect"]
+    log(f"fs-touch: {secs:.3f} s, peak {peak_gb:.3f} GB; stages (ms): "
+        f"checkpoint load {ms['load_glip_checkpoint'][0]:.1f}, mesh sampling "
+        f"{ms['sample_mesh_points'][0]:.1f} ({len(res.seg_points)} points), "
+        f"z-buffer render {ms['render_views'][0]:.1f} "
+        f"({len(glip)} views at 400x400), GLIP per view "
+        f"{np.mean(glip[1:]):.1f} (first {glip[0]:.1f}; 800x800), "
+        f"superpoints (cut-pursuit) {ms['superpoints'][0]:.1f}, vote "
+        f"{ms['bbox_vote'][0]:.1f}, proposals "
+        f"{ms['fuse_part_ranks'][0] + ms['propose_touches'][0]:.1f}; {card}")
+    log(f"fs-touch: boxes per view {n_boxes}; part index counts "
+        f"{np.unique(part_idx, return_counts=True)[1].tolist()} (parts "
+        f"{np.unique(part_idx).tolist()}); {len(props['points'])} proposals "
+        f"from {n_high} high-grad points, part ranks "
+        f"{props['part_rank'].astype(int).tolist()}; launches {launches}; "
+        f"cut-pursuit from {native.build().relative_to(native.BUILD_DIR.parent.parent)}")
+    if len(props["points"]) != min(TOUCH_QUOTA, n_high) or not (
+            np.isfinite(props["points"]).all()
+            and np.array_equal(props["points"], res.proposals.points)):
+        raise RuntimeError(f"fs-touch: {len(props['points'])} proposals read "
+                           f"back, want {min(TOUCH_QUOTA, n_high)}")
+    if len(dets) != 10 or not sum(n_boxes) or any(launches.values()):
+        raise RuntimeError(f"fs-touch: {len(dets)} views, boxes {n_boxes}, "
+                           f"launches {launches}")
+
+    # view 0's GLIP outputs, card against CPU, at a reduced image
+    pred = results["detect"][0][0][0]
+    view0 = results["render_views"][0][1][0]["rgb"]
+    image, _ = preprocess_image(view0, TOUCH_CPU_SIZE)
+    enc = pred.encode(list(TOUCH_PARTS))
+    card_pred = GLIPPredictor(pred.net, pred.tokenizer, TOUCH_CPU_SIZE,
+                              TOUCH_THRESHOLD, device=dev)
+    cpu_pred = GLIPPredictor(GC.load_glip_checkpoint(str(ckpt)),
+                             pred.tokenizer, TOUCH_CPU_SIZE, TOUCH_THRESHOLD,
+                             device="cpu")
+    det_g, outs_g = card_pred.run(image, *enc)
+    t0 = time.perf_counter()
+    det_c, outs_c = cpu_pred.run(image, *enc)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    worst = {}
+    for lv, (g, c) in enumerate(zip(outs_g, outs_c)):
+        for name, a, b in zip(("bbox", "ctr", "dot"), g, c):
+            d = (a.cpu() - b).abs()
+            scale = float(b.abs().max())
+            past = float((d > GLIP_REL * scale).float().mean())
+            new = (past, float(d.max()), float(d.max()) / scale)
+            worst[name] = tuple(max(x, y) for x, y in zip(
+                worst.get(name, new), new))
+    same = bool(torch.equal(det_g[2].cpu(), det_c[2])
+                and torch.equal(det_g[3].cpu(), det_c[3]))
+    log(f"touch view 0, card vs CPU at {image.shape[1]}x{image.shape[0]}: "
+        + ", ".join(f"{k} max |d| {v[1]:.3e} ({v[2]:.2e} of its scale), past "
+                    f"the limit {v[0]:.2e}" for k, v in worst.items())
+        + f"; postprocess labels and valid rows equal: {same}; CPU forward "
+        f"{cpu_ms:.0f} ms")
+    if any(v[0] > GLIP_FRAC for v in worst.values()):
+        raise RuntimeError(f"touch: GLIP on the card disagrees with the CPU: "
+                           f"{worst}")
+    del cpu_pred
+
+    # the forward's stages on the card at fs-touch's size (view 0)
+    image, _ = preprocess_image(view0, pred.min_size)
+    torch.cuda.reset_peak_memory_stats()
+    stages = _glip_stages(torch, pred, image, enc)
+    log(f"touch GLIP stages at {image.shape[1]}x{image.shape[0]} (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {card}")
+
+
 def main():
     import torch
 
@@ -2190,8 +2407,13 @@ def main():
         SCRATCH / "pipeline" / "dn_splatter" / f"ckpt_{PIPE_ITERS}")
     kernels[0]["launches"] += render_launches["flat_composite_fwd"]
     fs_kernels[0]["launches"] += render_launches["composite2_fwd"]
+    # 15. fs-touch on the pipeline's TSDF mesh and the resumed run's
+    # high-grad cloud, with GLIP at full width (no kernel of K1-K4)
+    touch_path(torch, dev, (FC, C2), card,
+               SCRATCH / "pipeline" / "dn_splatter" / "mesh_tsdf.ply",
+               SCRATCH / "pipeline" / "resume" / "high_grad_pts.pcd")
 
-    # 15. results
+    # 16. results
     print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -192,3 +192,33 @@ def test_render_batch_and_priors_default_to_the_card(monkeypatch, tmp_path):
                  lambda: Metric3DPredictor(Metric3D(tiny_m3d()))):
         with pytest.raises(RuntimeError):
             make()
+
+
+def test_touch_selection_defaults_to_the_card(monkeypatch, tmp_path):
+    """fs-touch, next_best_touches, segment_parts, render_views and
+    GLIPPredictor resolve their device first: without a card they raise
+    before reading a file or moving a weight."""
+    import numpy as np
+
+    from fusionsense_tpu_torch.cli import touch as CLIT
+    from fusionsense_tpu_torch.detection import GLIPModel, GLIPPredictor
+    from fusionsense_tpu_torch.detection.model import tiny_config
+    from fusionsense_tpu_torch.detection.tokenizer import WordPieceTokenizer
+    from fusionsense_tpu_torch.touch_select import partseg
+    from fusionsense_tpu_torch.touch_select.select import next_best_touches
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    pts = np.random.RandomState(0).rand(20, 3).astype(np.float32)
+    with pytest.raises(RuntimeError):
+        CLIT.main(["--mesh", missing, "--high-grad", missing, "--offline"])
+    with pytest.raises(RuntimeError):
+        CLIT.main(["--mode", "partname", "--offline"])
+    with pytest.raises(RuntimeError):
+        next_best_touches(missing, missing)
+    with pytest.raises(RuntimeError):
+        partseg.segment_parts(pts, pts, ["a"], detector=None)
+    with pytest.raises(RuntimeError):
+        partseg.render_views(pts, pts, n_views=1, size=8)
+    with pytest.raises(RuntimeError):
+        GLIPPredictor(GLIPModel(tiny_config()), WordPieceTokenizer.toy(["a"]))
