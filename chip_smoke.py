@@ -128,12 +128,34 @@ Phases (any failure exits non-zero and prints no result):
     cloud has), no kernel launched; each stage's ms, the peak memory and
     the seconds; view 0's GLIP outputs card against CPU at min_size 320;
     the GLIP forward's stages timed at 800x800;
-16. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+16. the omnidata normal prior on phase 11's capture (a copy): the
+    DPT-Hybrid net (vitb_rn50_384) at its published width from a seeded
+    random state dict written as the published .ckpt wraps it, loaded by
+    default_normal_model(model_type="omnidata", resolution="hd");
+    generate_priors with its HD normals (7 patches a 640x480 frame) over
+    every frame, each stored normal of unit length within 1e-3; view 0,
+    card against CPU at the priors' limits: the low path's normals and the
+    HD path's 7 patches (the merged HD map's gap reported beside them), with
+    TF32's reading; ms per 384x384 forward and per predictor call, peak
+    memory; no kernel of K1-K4;
+17. the live viewer: fs-train --viewer --viewer-port 0 resumed from phase
+    11's last checkpoint for 20 steps through K3/K4 (counted), its
+    server's /state and /splats.bin against the trainer (the step, the
+    alive count, pack_state's bytes); the time to pack and serve a
+    snapshot at that population; then fs-viewer on the checkpoint and on
+    its splat PLY, each in a subprocess: the URL line, the page (the
+    package's viewer.html), /state and /splats.bin;
+18. the NeRF baseline on phase 11's capture: NerfConfig()'s published
+    defaults (12 levels, a 2^17 table, 64 samples, 4,096 rays a step) with
+    the depth loss on, 200 Adam steps whose PSNR must rise (the last 20
+    against the first 20); one step and one 640x480 render_image timed with
+    CUDA events, peak memory; no kernel of K1-K4;
+19. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
     fusionsense path's post-refine shape; launches those of every path
-    that runs the kernel, graph replays, the mesh renders and fs-render's
-    renders included; errors the largest of every check; the blend_bf16
-    branch's times and error beside the float32 ones), the card line, and
-    last the result line.
+    that runs the kernel, graph replays, the mesh renders, fs-render's
+    renders and the viewer phase's steps included; errors the largest of
+    every check; the blend_bf16 branch's times and error beside the
+    float32 ones), the card line, and last the result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -237,6 +259,25 @@ TOUCH_SEED = 0
 TOUCH_PARTS = ("handle", "body", "base")
 TOUCH_QUOTA, TOUCH_THRESHOLD, TOUCH_CPU_SIZE = 10, 0.02, 320
 GLIP_REL, GLIP_FRAC = 1e-3, 1e-3
+# the omnidata phase: the DPT-Hybrid normal net at its published width
+# (vitb_rn50_384) with seeded random weights at a deep net's scale; its
+# head's last conv scaled by OMNI_HEAD_SCALE and its bias lifted by
+# OMNI_BIAS_LIFT (x, y, forward), so the encoded normals lie inside (0, 1)
+# and decode to vectors near unit length, mostly facing the camera, as a
+# trained net's do (unscaled, the random head's outputs reach ~270 and 93%
+# of them clamp; centred on 0.5 they decode to near-zero vectors, whose
+# renormalisation magnifies float32 noise; PERF.md); held card against CPU
+# at the priors' limits above
+OMNI_SEED, OMNI_HEAD_SCALE, OMNI_BIAS_LIFT = 3, 0.01, (0.5, 0.5, 1.0)
+# the viewer phase: fs-train --viewer resumed from the pipeline's last
+# checkpoint for VIEWER_STEPS steps, then fs-viewer in a subprocess, whose
+# URL line must come within VIEWER_WAIT seconds; the viewer's default cap
+VIEWER_STEPS, VIEWER_WAIT, VIEWER_MAX = 20, 180, 400_000
+# the NeRF phase: NerfConfig()'s published defaults with the depth loss on,
+# NERF_STEPS steps in chunks of NERF_CHUNK, PSNR of the first and the last
+# NERF_WINDOW steps
+NERF_SEED, NERF_DEPTH_LAMBDA = 0, 0.1
+NERF_STEPS, NERF_CHUNK, NERF_WINDOW = 200, 20, 20
 
 
 def log(msg):
@@ -2282,6 +2323,378 @@ def touch_path(torch, dev, counters, card, mesh, high):
         + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {card}")
 
 
+def omnidata_path(torch, dev, counters, card, capture):
+    """The omnidata normal prior (phase 16) on the pipeline phase's capture
+    (a copy): the DPT-Hybrid net at its published width from a seeded
+    random state dict, written as the published .ckpt wraps it and loaded
+    back through default_normal_model (resolution hd) and
+    load_omnidata_checkpoint; generate_priors with its HD normals over every
+    frame (7 patches per 640x480 frame), the stored normals read back and
+    held to unit length; view 0, card against the CPU at the priors' limits:
+    the low path's normals and the HD path's patches (the net's decoded
+    outputs), with the merged HD map's gap reported beside them (the host
+    merge's cross-fade renormalises sums of the random net's disagreeing
+    overlap predictions, which magnifies any difference there); TF32's
+    reading beside each; ms per 384x384 forward and per predictor call, peak
+    memory. No kernel of K1-K4 may launch."""
+    import contextlib
+    import shutil
+
+    import numpy as np
+
+    from fusionsense_tpu_torch.data.dataparser import load_rgb
+    from fusionsense_tpu_torch.priors import weights as PW
+    from fusionsense_tpu_torch.priors.mono_priors import (
+        default_normal_model, generate_priors,
+    )
+    from fusionsense_tpu_torch.priors.omnidata import (
+        OmniConfig, OmnidataNormals, OmnidataPredictor,
+    )
+    from fusionsense_tpu_torch.priors.omnidata import predictor as OP
+    from fusionsense_tpu_torch.priors.omnidata.convert import (
+        load_omnidata_checkpoint,
+    )
+    from fusionsense_tpu_torch.priors.omnidata.hd_merge import crop_grid
+    from fusionsense_tpu_torch.priors.tf32 import full_float32
+
+    out = SCRATCH / "omnidata"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    scene = out / "scene"
+    shutil.copytree(capture, scene)
+    t0 = time.perf_counter()
+    sd = PW.random_state_dict(OmnidataNormals(OmniConfig()), seed=OMNI_SEED,
+                              std=None)
+    sd["scratch.output_conv.4.weight"] *= OMNI_HEAD_SCALE
+    sd["scratch.output_conv.4.bias"] += torch.tensor(OMNI_BIAS_LIFT)
+    ckpt = out / "omnidata_dpt_normal_v2.ckpt"
+    torch.save({"state_dict": {f"model.{k}": v for k, v in sd.items()}}, ckpt)
+    n_par = sum(v.numel() for v in sd.values())
+    del sd
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hd = default_normal_model(str(ckpt), model_type="omnidata",
+                              resolution="hd", device=dev)
+    load_s = time.perf_counter() - t0
+    net_cpu, report = load_omnidata_checkpoint(str(ckpt))
+    low = OmnidataPredictor(hd.net, "low", device=dev)
+    cpu = {r: OmnidataPredictor(net_cpu, r, device="cpu")
+           for r in ("low", "hd")}
+    log(f"omnidata: DPT-Hybrid {n_par / 1e6:.2f} M parameters, random state "
+        f"dict written as {ckpt.name} in {write_s:.2f} s, loaded onto the "
+        f"card by default_normal_model(resolution='hd') in {load_s:.2f} s; "
+        f"keys missing {len(report['missing'])}, unused "
+        f"{len(report['unused'])}")
+    if report["missing"] or report["unused"] or not isinstance(
+            hd, OmnidataPredictor) or hd.resolution != "hd":
+        raise RuntimeError(f"omnidata: checkpoint report {report}, {hd!r}")
+
+    for c in counters:
+        c.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = generate_priors(scene, normal_model=hd, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    frames = meta["frames"]
+    n_all = np.stack([np.load(scene / fr["normal_file_path"]) for fr in frames])
+    unit = float(np.abs(np.linalg.norm(n_all, axis=-1) - 1).max())
+    n_patches = len(crop_grid(HEIGHT, WIDTH)[2])
+    log(f"omnidata: generate_priors over {len(frames)} frames at "
+        f"{WIDTH}x{HEIGHT} with HD normals ({n_patches} patches a frame): "
+        f"{gen_s:.3f} s, {1e3 * gen_s / len(frames):.1f} ms/frame; normals "
+        f"{n_all.shape} | |n| - 1 | <= {unit:.2e}; launches {launches}; {card}")
+    if not (n_all.shape == (len(frames), HEIGHT, WIDTH, 3)
+            and np.isfinite(n_all).all() and unit <= PRIOR_UNIT_TOL):
+        raise RuntimeError("omnidata: a stored normal map is out of range")
+    if any(launches.values()):
+        raise RuntimeError(f"omnidata: a compositing kernel ran: {launches}")
+
+    # view 0, card against CPU: the low path's output and the HD path's
+    # patches (what the card computes), held at the limits, and the merged
+    # HD map, reported; the predictors' float32, and TF32 allowed
+    rgb0 = load_rgb(scene / frames[0]["file_path"])
+    S = OP.IMAGE_SIZE
+    crops = crop_grid(HEIGHT, WIDTH)[2]
+    cover = np.zeros((HEIGHT, WIDTH), np.int32)
+    for py, px in crops.values():
+        cover[py:py + S, px:px + S] += 1
+
+    def hd_patches(p):
+        x = torch.from_numpy(np.ascontiguousarray(rgb0, np.float32)).to(p.device)
+        with torch.inference_mode(), OP.full_float32():
+            b = torch.stack([x[py:py + S, px:px + S] for py, px in crops.values()])
+            return p._run_patches(b).permute(0, 2, 3, 1).cpu().numpy()
+
+    calls = {"low": lambda r: r["low"].predict_normals(rgb0),
+             "hd patches": lambda r: hd_patches(r["hd"]),
+             "hd merged": lambda r: r["hd"].predict_normals(rgb0)}
+    card_p = {"low": low, "hd": hd}
+    want, cpu_ms = {}, {}
+    for k, f in calls.items():
+        t0 = time.perf_counter()
+        want[k] = f(cpu)
+        cpu_ms[k] = 1e3 * (time.perf_counter() - t0)
+
+    def readings():
+        out = {}
+        for k, f in calls.items():
+            got = f(card_p)
+            out[k] = _past_limit(got, want[k], "normal")
+            if k == "hd merged":
+                past = np.abs(got - want[k]).max(-1) > PRIOR_NORMAL_ATOL
+                out[k] += (float((cover[past] >= 2).mean()) if past.any()
+                           else 0.0,)
+        return out
+    gaps = readings()
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    saved = OP.full_float32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    OP.full_float32 = contextlib.nullcontext
+    try:
+        tf32 = readings()
+    finally:
+        OP.full_float32 = saved
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    for k in calls:
+        extra = (f" ({100 * gaps[k][2]:.1f}% of them where crops overlap; "
+                 f"reported, not held)" if k == "hd merged" else "")
+        log(f"omnidata view 0 ({k}), card vs CPU: float32 max |d| "
+            f"{gaps[k][0]:.3e}, past the limit {gaps[k][1]:.2e}{extra}; with "
+            f"TF32 max |d| {tf32[k][0]:.3e}, past {tf32[k][1]:.2e}; CPU "
+            f"{cpu_ms[k]:.0f} ms")
+
+    # ms of the net's forward at 384x384, of each predictor call, and peak
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((1, 3, 384, 384), device=dev, generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), full_float32():
+        fwd_ms = cuda_ms(lambda: hd.net(x), 5, 2)
+        batch = x.expand(n_patches, -1, -1, -1).contiguous()
+        batch_ms = cuda_ms(lambda: hd.net(batch), 3, 1)
+    ms = {r: _event_ms(torch, lambda p=p: p.predict_normals(rgb0))
+          for r, p in card_p.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"omnidata: the net's forward at 384x384 {fwd_ms:.2f} ms, "
+        f"{n_patches} patches in one batch {batch_ms:.2f} ms; predictor call "
+        f"on a {WIDTH}x{HEIGHT} frame (event timed, host pre/post and the HD "
+        f"merge included): low {ms['low']:.2f} ms, hd {ms['hd']:.2f} ms; "
+        f"peak {peak:.3f} GB; {card}")
+    bad = {k: v for k, v in gaps.items()
+           if k != "hd merged" and v[1] > PRIOR_FRAC}
+    if bad:
+        raise RuntimeError(f"omnidata: card and CPU disagree past the limits: "
+                           f"{bad}")
+
+
+def _fs_viewer(args, timeout):
+    """Run fs-viewer in a subprocess on `args`; return (seconds to its URL
+    line, the line, / bytes, /state, /splats.bin bytes); the subprocess is
+    stopped before returning."""
+    import select
+    import urllib.request
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fusionsense_tpu_torch.cli.viewer", *args,
+         "--port", "0"], cwd=Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = []
+        while True:
+            left = timeout - (time.perf_counter() - t0)
+            if left <= 0 or not select.select([proc.stdout], [], [], left)[0]:
+                raise RuntimeError(f"fs-viewer {args}: no URL line in "
+                                   f"{timeout} s: {lines[-20:]}")
+            line = proc.stdout.readline()
+            if not line:
+                raise RuntimeError(f"fs-viewer {args} exited "
+                                   f"{proc.wait()}: {lines[-20:]}")
+            lines.append(line.rstrip())
+            if line.startswith("viewing "):
+                break
+        secs = time.perf_counter() - t0
+        url = lines[-1].rsplit(" at ", 1)[1]
+        get = lambda path: urllib.request.urlopen(  # noqa: E731
+            url + path, timeout=60).read()
+        return (secs, lines[-1], get(""), json.loads(get("state")),
+                get("splats.bin"))
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def viewer_path(torch, dev, counters, card, scene, ckpt):
+    """The live viewer (phase 17): fs-train --viewer --viewer-port 0
+    resumed from the pipeline's last checkpoint for VIEWER_STEPS steps (the
+    pipeline's flags, its ViewerCallback on Trainer.run), then /state and
+    /splats.bin of its server against the trainer's state, and the time to
+    pack and serve a snapshot at that population; then fs-viewer on the
+    checkpoint and on its splat PLY, each in a subprocess: the URL line, the
+    page, /state and /splats.bin. Returns the K3/K4 launches of the
+    resumed run."""
+    import shutil
+    import urllib.request
+
+    from fusionsense_tpu_torch.cli.train import main as fs_train
+    from fusionsense_tpu_torch.gaussians.io import (
+        export_splat_ply, import_splat_ply,
+    )
+    from fusionsense_tpu_torch.train.checkpoint import load_for_inference
+    from fusionsense_tpu_torch.viewer import pack_state
+    from fusionsense_tpu_torch.viewer import server as VS
+
+    out_root = SCRATCH / "viewer"
+    shutil.rmtree(out_root, ignore_errors=True)
+    out_root.mkdir(parents=True)
+    html = (Path(VS.__file__).parent / "viewer.html").read_bytes()
+    for c in counters:
+        c.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = fs_train([
+        "--data", str(scene), "--output-dir", str(out_root),
+        "--experiment-name", "live", "--load-touches", "--backend", "pallas",
+        "--iterations", str(PIPE_ITERS + VIEWER_STEPS), "--warmup-length",
+        str(PIPE_WARMUP), "--stop-split-at", str(PIPE_STOP_SPLIT),
+        "--add-touch-at", str(PIPE_TOUCH_AT), "--steps-per-save",
+        str(PIPE_SAVE), "--resume", str(ckpt), "--mesh", "--skip-eval",
+        "--viewer", "--viewer-port", "0"], device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    srv, tr = pipe.viewer_server, pipe.trainer
+    try:
+        get = lambda path: urllib.request.urlopen(  # noqa: E731
+            srv.url + path, timeout=60).read()
+        st = json.loads(get("state"))
+        served = get("splats.bin")
+        want = pack_state(tr.gaussians, VIEWER_MAX)
+        n_alive = int(tr.gaussians.num_alive)
+        log(f"viewer: fs-train --viewer resumed at step {PIPE_ITERS} for "
+            f"{VIEWER_STEPS} steps in {train_s:.2f} s; /state step "
+            f"{st['step']} (trainer {tr.step}), num_splats {st['num_splats']} "
+            f"(alive {n_alive}), version {st['version']}; /splats.bin "
+            f"{len(served)} bytes, equal to pack_state: {served == want}; "
+            f"launches {launches}")
+        if not (st["step"] == tr.step == PIPE_ITERS + VIEWER_STEPS
+                and st["num_splats"] == min(n_alive, VIEWER_MAX)
+                and served == want and get("") == html):
+            raise RuntimeError(f"viewer: the live server disagrees with the "
+                               f"trainer: {st}")
+        if not (launches["composite2_fwd"] and launches["composite2_bwd"]) or \
+                launches["composite2_fwd_plain"] or launches["composite2_bwd_plain"]:
+            raise RuntimeError(f"viewer: launches {launches}")
+
+        # pack and serve a snapshot at the pipeline's population
+        times = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = pack_state(tr.gaussians, VIEWER_MAX)
+        times["pack"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        srv.update(blob, tr.step)
+        times["update"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = get("splats.bin")
+        times["GET /splats.bin"] = time.perf_counter() - t0
+        if again != blob:
+            raise RuntimeError("viewer: the served snapshot is not the packed one")
+        log(f"viewer: a snapshot of {n_alive} splats ({len(blob) / 1e6:.2f} "
+            f"MB): " + ", ".join(f"{k} {1e3 * v:.2f} ms"
+                                 for k, v in times.items()) + f"; {card}")
+    finally:
+        srv.close()
+
+    # fs-viewer in a subprocess, on the checkpoint and on its splat PLY
+    state = load_for_inference(ckpt, device=dev)[0]
+    ply = out_root / "splat.ply"
+    n_ply = export_splat_ply(ply, state)
+    for flag, path, src in (("--checkpoint", ckpt, state),
+                            ("--ply", ply, import_splat_ply(ply, device=dev))):
+        secs, line, page, st, blob = _fs_viewer([flag, str(path)], VIEWER_WAIT)
+        want = pack_state(src, VIEWER_MAX)
+        log(f"fs-viewer {flag} {path.name}: URL line after {secs:.2f} s "
+            f"({line!r}); page {len(page)} bytes, /state num_splats "
+            f"{st['num_splats']} step {st['step']}, /splats.bin {len(blob)} "
+            f"bytes, equal to pack_state: {blob == want}")
+        if not (page == html and st["num_splats"] == len(want) // 32
+                == min(n_ply, VIEWER_MAX) and blob == want):
+            raise RuntimeError(f"fs-viewer {flag}: served {st}, want "
+                               f"{len(want) // 32} splats")
+    return launches
+
+
+def nerf_path(torch, dev, counters, card, scene):
+    """The NeRF baseline (phase 18) on the pipeline phase's capture:
+    NerfConfig()'s published defaults with the depth loss on, NERF_STEPS
+    Adam steps of NerfConfig.rays_per_step rays drawn from a generator on
+    the card; the PSNR of the last NERF_WINDOW steps must exceed that of the
+    first; one step and one full-resolution render_image timed with CUDA
+    events, peak memory. No kernel of K1-K4 may launch."""
+    import numpy as np
+
+    from fusionsense_tpu_torch.baselines import nerf as NF
+    from fusionsense_tpu_torch.data.dataparser import (
+        DataParserConfig, load_train_data, parse_transforms,
+    )
+
+    dcfg = DataParserConfig(data_dir=str(scene))
+    cams, data = load_train_data(parse_transforms(dcfg, device=dev), dcfg,
+                                 "train")
+    images, depths = data.images, data.sensor_depths
+    V, H, W = images.shape[:3]
+    cfg = dataclasses.replace(NF.NerfConfig(), depth_lambda=NERF_DEPTH_LAMBDA)
+    gen = torch.Generator(device=dev).manual_seed(NERF_SEED)
+    params = NF.init_params(gen, cfg, dev)
+    init, chunk = NF.make_train_step(cfg, cams, images, depths)
+    state = init(params)
+    for c in counters:
+        c.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    psnr = []
+    for _ in range(NERF_STEPS // NERF_CHUNK):
+        draws = [NF.draw_rays(gen, cfg, V, H, W, dev) for _ in range(NERF_CHUNK)]
+        params, state, m = chunk(params, state, draws)
+        psnr.append(m["psnr"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    psnr = torch.cat(psnr).cpu().numpy()
+    first, last = (float(psnr[:NERF_WINDOW].mean()),
+                   float(psnr[-NERF_WINDOW:].mean()))
+    draw = NF.draw_rays(gen, cfg, V, H, W, dev)
+    step_ms = _event_ms(torch, lambda: chunk(params, state, [draw]), n=5)
+    cam0 = cams.index(0)
+    img = NF.render_image(params, cam0, cfg)
+    render_ms = _event_ms(torch, lambda: NF.render_image(params, cam0, cfg),
+                          n=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    log(f"nerf: {NERF_STEPS} steps of {cfg.rays_per_step} rays x "
+        f"{cfg.n_samples} samples ({cfg.n_levels} levels, table "
+        f"2^{cfg.table_size_log2}, depth lambda {cfg.depth_lambda}) on "
+        f"{V} views at {W}x{H} in {train_s:.2f} s; PSNR first "
+        f"{NERF_WINDOW} {first:.3f}, last {NERF_WINDOW} {last:.3f}; one step "
+        f"{step_ms:.2f} ms, render_image at {W}x{H} {render_ms:.1f} ms "
+        f"(CUDA events); peak {peak:.3f} GB; launches {launches}; {card}")
+    if not (np.isfinite(psnr).all() and last > first):
+        raise RuntimeError(f"nerf: PSNR did not rise: {first} -> {last}")
+    if not (img["rgb"].shape == (H, W, 3) and np.isfinite(img["rgb"]).all()
+            and np.isfinite(img["depth"]).all()):
+        raise RuntimeError("nerf: the rendered image is not finite")
+    if any(launches.values()):
+        raise RuntimeError(f"nerf: a compositing kernel ran: {launches}")
+
+
 def main():
     import torch
 
@@ -2412,8 +2825,19 @@ def main():
     touch_path(torch, dev, (FC, C2), card,
                SCRATCH / "pipeline" / "dn_splatter" / "mesh_tsdf.ply",
                SCRATCH / "pipeline" / "resume" / "high_grad_pts.pcd")
+    # 16. the omnidata normal prior on the pipeline's capture (no K1-K4)
+    omnidata_path(torch, dev, (FC, C2), card, SCRATCH / "blob")
+    # 17. the live viewer: fs-train --viewer resumed from the pipeline's
+    # last checkpoint (K3/K4 counted), then fs-viewer in subprocesses
+    viewer_launches = viewer_path(
+        torch, dev, (FC, C2), card, SCRATCH / "blob",
+        SCRATCH / "pipeline" / "dn_splatter" / f"ckpt_{PIPE_ITERS}")
+    for k, key in zip(fs_kernels, ("fwd", "bwd")):
+        k["launches"] += viewer_launches[f"composite2_{key}"]
+    # 18. the NeRF baseline on the pipeline's capture (no K1-K4)
+    nerf_path(torch, dev, (FC, C2), card, SCRATCH / "blob")
 
-    # 16. results
+    # 19. results
     print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

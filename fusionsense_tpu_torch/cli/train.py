@@ -5,9 +5,9 @@
 The flags, their defaults and choices are those of fusionsense_tpu's
 fs-train: after training, the meshes of --mesh (tsdf and sugar-coarse by
 default; an empty --mesh extracts none) go to the output directory, then
-the train split is evaluated. The run is on the card. Options whose code
-is not ported yet raise before any training, naming their ROADMAP item:
---device-mesh (A18) and --viewer (A19).
+the train split is evaluated; --viewer serves the live model while it
+trains. The run is on the card. --device-mesh, whose code is not ported
+yet, raises before any training, naming its ROADMAP item (A18).
 """
 from __future__ import annotations
 
@@ -53,8 +53,7 @@ def build_parser():
                    help="mesh methods to extract after training")
     p.add_argument("--skip-eval", action="store_true")
     p.add_argument("--viewer", action="store_true",
-                   help="serve the live splat viewer while training (not "
-                        "ported)")
+                   help="serve the live WebGL splat viewer while training")
     p.add_argument("--viewer-port", type=int, default=7007)
     p.add_argument("--device-mesh", default=None,
                    help="multi-device axis spec, e.g. data=2,tile=2,gauss=2 "

@@ -71,3 +71,12 @@ def touch_patches_from_numpy(patches: list[dict]) -> list[TouchPatch]:
     port's TouchPatch objects."""
     return [TouchPatch(**{k: np.array(v) for k, v in p.items()})
             for p in patches]
+
+
+def nerf_params_from_numpy(d: dict, device=None) -> dict:
+    """The NeRF baseline's params (the JAX pytree fetched to the host:
+    `table` and the layers `d1`, `d2`, `density_head`, `c1`, `c2`, each
+    {"w", "b"}) as the port's dict of tensors."""
+    dev = resolve_device(device)
+    return {k: ({n: _t(a, dev) for n, a in v.items()} if isinstance(v, dict)
+                else _t(v, dev)) for k, v in d.items()}

@@ -10,10 +10,10 @@ Counterpart of fusionsense_tpu/pipeline.py. Stages:
  6. mesh extraction                                [mesh_export]
  7. evaluation (render metrics) -> metrics.json.
 Generated priors are written in capture coordinates and registered in the
-scene's transforms.json, so later runs reuse them.
+scene's transforms.json, so later runs reuse them. With `viewer`, the live
+splat viewer serves the model while Trainer.run trains it.
 
-Not ported yet (each raises, naming its ROADMAP item): the device mesh
-(A18) and the live viewer (A19).
+Not ported yet (raises, naming its ROADMAP item): the device mesh (A18).
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ class PipelineConfig:
     run_hull_pruning: bool = True
     high_grad_export: bool = True
     output_dir: str = "outputs"
-    viewer: bool = False          # the live viewer: not ported (A19)
+    viewer: bool = False          # serve the live WebGL splat viewer
     viewer_port: int = 7007
     device_mesh: Optional[str] = None   # multi-device axes: not ported (A18)
     resume: Optional[str] = None  # a Trainer.save checkpoint to resume from
@@ -64,9 +64,6 @@ def check_slice(cfg: PipelineConfig) -> None:
         raise NotImplementedError(
             f"device_mesh={cfg.device_mesh!r}: multi-device training is not "
             "ported (ROADMAP A18)")
-    if cfg.viewer:
-        raise NotImplementedError("viewer=True: the live viewer is not ported "
-                                  "(ROADMAP A19)")
 
 
 class ReconstructionPipeline:
@@ -80,6 +77,7 @@ class ReconstructionPipeline:
         self.camera, self.data = load_train_data(self.scene, cfg.data, "train")
         self.hull_points: Optional[np.ndarray] = None
         self.trainer: Optional[Trainer] = None
+        self.viewer_server = None
 
     def _register_artifact(self, key: str, path):
         """Point transforms.json's `key` at a generated prior, so later runs
@@ -180,6 +178,16 @@ class ReconstructionPipeline:
                     if log:
                         log(f"high-grad export: {n} points")
             callbacks.append(high_grad_cb)
+
+        if cfg.viewer:
+            from fusionsense_tpu_torch.viewer import (
+                SplatViewerServer, ViewerCallback,
+            )
+
+            self.viewer_server = SplatViewerServer(port=cfg.viewer_port)
+            callbacks.append(ViewerCallback(self.viewer_server))
+            if log:
+                log(f"live viewer at {self.viewer_server.url}")
         return callbacks
 
     def train(self, log=print):

@@ -8,13 +8,11 @@ metric3dv2_depth_generation.py), DSINE/omnidata for normals
 They produce priors; the reconstruction never backprops into them.
 
 Here: a Protocol per modality, the file-layout writer `generate_priors`,
-the in-repo predictors behind `default_normal_model` (DSINE) and
-`default_depth_model` (Metric3D, else Depth-Anything), the gated
+the in-repo predictors behind `default_normal_model` (DSINE or omnidata)
+and `default_depth_model` (Metric3D, else Depth-Anything), the gated
 `TorchHubDepthModel`, and the fallbacks that derive priors from the
 capture itself (`DepthFromSensor`, `NormalsFromDepth`; the reference's
-normals-from-depth mode, normals_from_pretrain.py:412). Omnidata's net is
-not ported yet (ROADMAP A15, omnidata): asking for it with a checkpoint
-raises.
+normals-from-depth mode, normals_from_pretrain.py:412).
 """
 from __future__ import annotations
 
@@ -107,20 +105,20 @@ def default_normal_model(checkpoint: str | Path | None = None,
                          resolution: str = "low", device=None):
     """The normal prior for `--model-type {omnidata, dsine}` (reference
     normals_from_pretrain.py:60-63; the orchestrator's default is DSINE,
-    scripts/train.py:101): the in-repo predictor on `device` when a
-    checkpoint is found (the path argument, else $DSINE_CHECKPOINT or
-    $OMNIDATA_CHECKPOINT), else None (generate_priors then falls back to
-    normals from depth). Omnidata with a checkpoint raises: its net is not
-    ported yet."""
+    scripts/train.py:101), with omnidata's `--resolution {low, hd}`: the
+    in-repo predictor on `device` when a checkpoint is found (the path
+    argument, else $DSINE_CHECKPOINT or $OMNIDATA_CHECKPOINT), else None
+    (generate_priors then falls back to normals from depth)."""
     import os
 
     if model_type == "omnidata":
         path = checkpoint or os.environ.get("OMNIDATA_CHECKPOINT")
         if not path or not Path(path).exists():
             return None
-        raise NotImplementedError(
-            f"model_type='omnidata' ({path}, resolution={resolution!r}): the "
-            "omnidata normal net is not ported yet (ROADMAP A15 (omnidata))")
+        from fusionsense_tpu_torch.priors.omnidata import OmnidataPredictor
+
+        return OmnidataPredictor.from_checkpoint(
+            str(path), resolution=resolution, device=device)
 
     path = checkpoint or os.environ.get("DSINE_CHECKPOINT")
     if not path or not Path(path).exists():

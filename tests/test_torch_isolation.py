@@ -222,3 +222,24 @@ def test_touch_selection_defaults_to_the_card(monkeypatch, tmp_path):
         partseg.render_views(pts, pts, n_views=1, size=8)
     with pytest.raises(RuntimeError):
         GLIPPredictor(GLIPModel(tiny_config()), WordPieceTokenizer.toy(["a"]))
+
+
+def test_omnidata_viewer_and_nerf_default_to_the_card(monkeypatch, tmp_path):
+    """The omnidata predictor, fs-viewer and the NeRF baseline's params
+    resolve their device first: without a card they raise, fs-viewer before
+    reading its model."""
+    from fusionsense_tpu_torch.baselines.nerf import NerfConfig, init_params
+    from fusionsense_tpu_torch.cli import viewer as CLIV
+    from fusionsense_tpu_torch.priors.omnidata import (
+        OmnidataNormals, OmnidataPredictor, tiny_omni,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError):
+        OmnidataPredictor(OmnidataNormals(tiny_omni()))
+    for flag in ("--ply", "--checkpoint"):
+        with pytest.raises(RuntimeError):
+            CLIV.main([flag, missing, "--port", "0"])
+    with pytest.raises(RuntimeError):
+        init_params(torch.Generator(), NerfConfig(table_size_log2=4))

@@ -502,12 +502,42 @@ def test_cli_parser_matches_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "--device-mesh", "data=2"], "A18"),
-    (["--mesh", "--viewer"], "A19")])
+    (["--mesh", "--device-mesh", "data=2"], "A18")])
 def test_cli_refuses_unported_options_before_training(tmp_path, flags, item):
     """Named by their ROADMAP item, before the scene is even read."""
     with pytest.raises(NotImplementedError, match=item):
         CLIT.main(["--data", str(tmp_path / "missing"), *flags], device="cpu")
+
+
+def test_cli_viewer_serves_the_trained_model(blob, tmp_path, monkeypatch):
+    """fs-train --viewer --viewer-port 0 for 4 CPU steps: the live server's
+    /state reports the trainer's step and alive count, /splats.bin is the
+    trained state packed, and the page is served."""
+    import urllib.request
+
+    from fusionsense_tpu_torch.viewer import pack_state
+
+    monkeypatch.setattr(PIPET, "visual_hull", functools.partial(
+        VHT.visual_hull, cfg=VHT.VisualHullConfig(**HULL)))
+    shutil.copytree(blob[0], tmp_path / "scene")
+    pipe = CLIT.main([
+        "--data", str(tmp_path / "scene"), "--output-dir", str(tmp_path / "o"),
+        "--iterations", "4", "--scan-chunk", "4", "--warmup-length", "4",
+        "--capacity", "4096", "--sh-degree", "1", "--tile-capacity", "256",
+        "--mesh", "--skip-eval", "--viewer", "--viewer-port", "0"],
+        device="cpu")
+    srv = pipe.viewer_server
+    try:
+        get = lambda path: urllib.request.urlopen(  # noqa: E731
+            srv.url + path, timeout=30).read()
+        st = json.loads(get("state"))
+        tr = pipe.trainer
+        assert st["step"] == tr.step == 4
+        assert st["num_splats"] == int(tr.gaussians.num_alive) > 0
+        assert get("splats.bin") == pack_state(tr.gaussians, 400_000)
+        assert b"webgl2" in get("").lower()
+    finally:
+        srv.close()
 
 
 def test_cli_trains_and_evaluates(blob, tmp_path, monkeypatch, capsys):

@@ -284,15 +284,38 @@ def test_default_models_lookup_matches_jax(monkeypatch, tmp_path):
 
 
 def test_omnidata_with_a_checkpoint_raises(monkeypatch, tmp_path):
-    ck = tmp_path / "omnidata.pt"
-    ck.write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match=r"A15 \(omnidata\)"):
-        MPT.default_normal_model(str(ck), model_type="omnidata")
+    """Formerly held the raise of the unported net; now that omnidata is
+    ported: a written random checkpoint (the tiny net, wrapped as the
+    published .ckpt) loads through default_normal_model, from the path or
+    $OMNIDATA_CHECKPOINT, at the asked resolution, and predicts what the
+    same net predicts; without a checkpoint the result is None."""
+    from fusionsense_tpu_torch.priors.omnidata import convert as TOC
+    from fusionsense_tpu_torch.priors.omnidata.predictor import (
+        OmnidataPredictor,
+    )
+
+    net, sd, _, cfg, _ = build("omni")
+    ck = tmp_path / "omnidata.ckpt"
+    torch.save({"state_dict": {f"model.{k}": v for k, v in sd.items()}}, ck)
+    load = TOC.load_omnidata_checkpoint
+    monkeypatch.setattr(TOC, "load_omnidata_checkpoint",
+                        lambda path, _cfg=None: load(path, cfg))
+    rgb = (np.random.default_rng(2).uniform(size=(40, 56, 3)) * 255).astype(
+        np.uint8)
+    want = OmnidataPredictor(net, device="cpu").predict_normals(rgb)
+    pred = MPT.default_normal_model(str(ck), model_type="omnidata",
+                                    device="cpu")
+    assert isinstance(pred, OmnidataPredictor) and pred.resolution == "low"
+    np.testing.assert_array_equal(pred.predict_normals(rgb), want)
+    np.testing.assert_allclose(np.linalg.norm(want, axis=-1), 1.0, atol=1e-5)
     monkeypatch.setenv("OMNIDATA_CHECKPOINT", str(ck))
-    with pytest.raises(NotImplementedError, match=r"A15 \(omnidata\)"):
-        MPT.default_normal_model(model_type="omnidata")
+    pred = MPT.default_normal_model(model_type="omnidata", resolution="hd",
+                                    device="cpu")
+    assert pred.resolution == "hd" and pred.device.type == "cpu"
     monkeypatch.delenv("OMNIDATA_CHECKPOINT")
     assert MPT.default_normal_model(model_type="omnidata") is None
+    assert MPT.default_normal_model(str(tmp_path / "missing.ckpt"),
+                                    model_type="omnidata") is None
 
 
 def test_full_float32_clears_both_tf32_flags_inside_only():
