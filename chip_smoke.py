@@ -150,12 +150,32 @@ Phases (any failure exits non-zero and prints no result):
     the depth loss on, 200 Adam steps whose PSNR must rise (the last 20
     against the first 20); one step and one 640x480 render_image timed with
     CUDA events, peak memory; no kernel of K1-K4;
-19. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+19. multi-device training (parallel/): K1/K2 on view 0's flat table of
+    the initial state split into 2 and 4 tile blocks at tile_lo = me *
+    T_loc, and K3/K4 on its dense table split into row blocks at their
+    global tile ids, each against its plain version and the blocks'
+    outputs concatenated against the unsharded kernel's; then 8 ranks
+    spawned on the one card (gloo, the backend rule of parallel/mesh.py),
+    a data=2 x tile=2 x gauss=2 mesh (MULTICHIP_r05.json's shape): one
+    sharded step against the single-device batch-mean step at
+    test_parallel.py's depth-slice tolerances and ZeRO-1 against the
+    replicated step at its ZeRO-1 ones; the step's collectives timed
+    alone; ShardedTrainer with ZeRO-1 for 60 steps of the flat bench
+    configuration and of dn_splatter with pallas, refines at 30 and 60:
+    view-0 PSNR rising, the population changed, every rank's state
+    bit-equal (digests gathered to rank 0), K1-K4 launched on every rank
+    every step and no plain twin, ms/step (8 ranks sharing one card, not
+    a scaling number); rank 0's checkpoint restored into a single-device
+    Trainer for 10 steps; fs-train --device-mesh through torchrun (8
+    ranks, flat, 200 steps, an empty --mesh) on a copy of phase 11's
+    capture, rank 0's artifacts read back and its logged PSNR rising;
+20. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
     fusionsense path's post-refine shape; launches those of every path
     that runs the kernel, graph replays, the mesh renders, fs-render's
-    renders and the viewer phase's steps included; errors the largest of
-    every check; the blend_bf16 branch's times and error beside the
-    float32 ones), the card line, and last the result line.
+    renders, the viewer phase's steps and the sharded ranks' steps
+    included; errors the largest of every check; the blend_bf16 branch's
+    times and error beside the float32 ones), the card line, and last the
+    result line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -278,6 +298,29 @@ VIEWER_STEPS, VIEWER_WAIT, VIEWER_MAX = 20, 180, 400_000
 # NERF_WINDOW steps
 NERF_SEED, NERF_DEPTH_LAMBDA = 0, 0.1
 NERF_STEPS, NERF_CHUNK, NERF_WINDOW = 200, 20, 20
+# the sharded phase: MULTICHIP_r05.json's mesh shape (data=2 x tile=2 x
+# gauss=2, ZeRO-1) in SHARD_RANKS processes sharing the one card (gloo:
+# NCCL takes one rank per card). K1/K2's tile blocks at tile_lo and K3/K4's
+# at offset tile ids for each shard count of SHARD_SPLITS; one sharded step
+# against the single-device batch-mean step at test_parallel.py's
+# depth-slice tolerances (ZeRO-1 against the replicated step at its ZeRO-1
+# ones), at a pair budget neither side overflows. Adam's first step moves
+# each parameter by lr times the gradient's sign, so the means check holds
+# only signs (any two first steps are within 2 lr = 3.2e-4 of each other);
+# the first moments (0.1 x the reduced gradient) carry its scale and are
+# also held relative to their largest entry, at TOL_SHARD_SCALE (ZeRO-1 at
+# TOL_ZERO1_SCALE): a lost 1 / (n_tile n_gauss) or a gather whose backward
+# does not sum is off by a factor, far past either. SHARD_STEPS steps of the
+# flat and of the dense trainer with a refine every SHARD_ADC, logged every
+# SHARD_LOG; fs-train --device-mesh through torchrun for SHARD_CLI_ITERS
+SHARD_AXES = dict(data=2, tile=2, gauss=2)
+SHARD_RANKS, SHARD_SPLITS, SHARD_TILE_CAPACITY = 8, (2, 4), 4096
+SHARD_STEPS, SHARD_LOG, SHARD_RESUME_STEPS = 60, 10, 10
+SHARD_ADC = dict(warmup=30, refine_every=30)
+TOL_SHARD, TOL_SHARD_M = dict(atol=4e-4, rtol=1e-3), dict(atol=4e-4, rtol=2e-3)
+TOL_ZERO1 = dict(atol=3e-5, rtol=1e-3)
+TOL_SHARD_SCALE, TOL_ZERO1_SCALE = 1e-2, 1e-3
+SHARD_CLI_ITERS, SHARD_CLI_WARMUP, SHARD_WAIT = 200, 100, 900
 
 
 def log(msg):
@@ -2695,6 +2738,567 @@ def nerf_path(torch, dev, counters, card, scene):
         raise RuntimeError(f"nerf: a compositing kernel ran: {launches}")
 
 
+def _shard_blocks_flat(torch, pre, cam, rc, n, pairs=None):
+    """The flat tables of the n tile blocks of a tile-sharded mesh (the
+    sharded step's flat_local_table): (table, runs, counts, T_loc, tile_lo,
+    block-aligned pairs) each. With `pairs` (the unsharded layout's aligned
+    pair total, which bounds every block's) each block's budget holds that
+    many; no block may drop a pair."""
+    from fusionsense_tpu_torch.parallel.sharded import (
+        flat_local_table, tile_block,
+    )
+    from fusionsense_tpu_torch.render import flat_composite as FC
+    from fusionsense_tpu_torch.render.composite import TileGrid
+
+    T = TileGrid(cam.width, cam.height, rc.tile_size).num_tiles
+    out = []
+    for me in range(n):
+        _, t_loc, lo = tile_block(T, n, me)
+        rc_me = rc if pairs is None else dataclasses.replace(
+            rc, tile_capacity=-(-pairs // t_loc))
+        with torch.no_grad():
+            table, fb = flat_local_table(pre, pre.proj.valid, cam, rc_me, lo,
+                                         t_loc)
+        if int(fb.overflow):
+            raise RuntimeError(f"sharded: block {me}/{n} dropped "
+                               f"{int(fb.overflow)} pairs")
+        out.append((table.contiguous(), FC.tile_runs(fb.blk_tile, t_loc),
+                    fb.blk_count.to(torch.int32).contiguous(), t_loc, lo,
+                    int(fb.used)))
+    return out
+
+
+def check_sharded_kernels(torch, cams, init, cfg):
+    """K1/K2 at tile_lo and K3/K4 at offset tile ids, on view 0's real
+    tables of the initial state: each block of SHARD_SPLITS shard counts
+    against the plain versions (out / alpha at TOL_OUT / TOL_ALPHA, dtab
+    column by column at TOL_DTAB_REL, K2/K4 fed the unsharded cotangents of
+    the block's tiles), and the blocks' outputs concatenated against the
+    unsharded kernel's. Returns the largest errors by kernel key."""
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.render import composite2 as C2
+    from fusionsense_tpu_torch.render import flat_composite as FC
+    from fusionsense_tpu_torch.render import rasterize as R
+    from fusionsense_tpu_torch.render.composite import TileGrid
+
+    cam = cams.index(0)
+    dev = cam.device
+    errs = {"flat_composite_fwd": 0.0, "flat_composite_bwd": 0.0,
+            "composite2_fwd": 0.0, "composite2_bwd": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def cotangents(T, C, P):
+        return (G_SCALE * torch.randn((T, C, P), generator=gen, device=dev),
+                G_SCALE * torch.randn((T, P), generator=gen, device=dev))
+
+    def hold(key, what, err, tol):
+        errs[key] = max(errs[key], err)
+        if not err <= tol:
+            raise RuntimeError(f"sharded: {what} max|d| {err:.3e} past "
+                               f"{tol:.0e}")
+
+    # K1/K2: the bench's flat configuration
+    rc = dataclasses.replace(cfg.model.rasterize,
+                             tile_capacity=SHARD_TILE_CAPACITY)
+    grid = TileGrid(cam.width, cam.height, rc.tile_size)
+    T, P, B = grid.num_tiles, grid.pixels_per_tile, rc.pallas_chunk
+    tx, ts = grid.tiles_x, rc.tile_size
+    with torch.no_grad():
+        m, q, s, o, c = activated(init)
+        normals = R.gaussian_flat_normals(q, s, m, cam.origin)
+        pre = R._prepare(m, q, s, o, c, cam, rc, normals, None)
+    ((table, runs, count, _, _, pairs),) = _shard_blocks_flat(torch, pre, cam,
+                                                              rc, 1)
+    out_f, logt_f, _, _, _ = FC.flat_composite_fwd_cuda(table, runs, count,
+                                                        T, tx, ts, B)
+    C = table.shape[1] - 8
+    g_out, g_logt = cotangents(T, C, P)
+    for n in SHARD_SPLITS:
+        outs, logts = [], []
+        for me, (table, runs, count, t_loc, lo, _) in enumerate(
+                _shard_blocks_flat(torch, pre, cam, rc, n, pairs)):
+            geo = (t_loc, tx, ts, B)
+            o_k, lt, carry, acc, live = FC.flat_composite_fwd_cuda(
+                table, runs, count, *geo, tile_lo=lo)
+            torch.cuda.synchronize()
+            o_p, lt_p, _, _, live_p = FC.flat_composite_fwd_plain(
+                table, runs, count, *geo, tile_lo=lo)
+            if not torch.equal(live, live_p):
+                raise RuntimeError(f"sharded: K1 block {me}/{n}: live flags "
+                                   "differ from the plain version's")
+            hold("flat_composite_fwd", f"K1 block {me}/{n} out",
+                 max_err(o_k, o_p), TOL_OUT)
+            hold("flat_composite_fwd", f"K1 block {me}/{n} alpha",
+                 max_err(torch.exp(lt), torch.exp(lt_p)), TOL_ALPHA)
+            go = torch.zeros((t_loc + 1, C, P), device=dev)
+            gl = torch.zeros((t_loc + 1, P), device=dev)
+            k = max(0, min(t_loc, T - lo))
+            go[:k], gl[:k] = g_out[lo:lo + k], g_logt[lo:lo + k]
+            bwd_args = (table, runs, go, gl, lt, carry, acc, live, tx, ts, B)
+            dtab = FC.flat_composite_bwd_cuda(*bwd_args, tile_lo=lo)
+            torch.cuda.synchronize()
+            errs["flat_composite_bwd"] = max(
+                errs["flat_composite_bwd"],
+                check_columns(f"K2 block {me}/{n} at tile_lo {lo}", dtab,
+                              FC.flat_composite_bwd_plain(*bwd_args,
+                                                          tile_lo=lo)))
+            outs.append(o_k[:t_loc])
+            logts.append(lt[:t_loc])
+        hold("flat_composite_fwd", f"K1's {n} blocks against the unsharded",
+             max_err(torch.cat(outs)[:T], out_f[:T]), TOL_OUT)
+        hold("flat_composite_fwd", f"K1's {n} blocks' alpha",
+             max_err(torch.exp(torch.cat(logts)[:T]), torch.exp(logt_f[:T])),
+             TOL_ALPHA)
+
+    # K3/K4: phase 7's dense configuration
+    rd = dense_config().model.rasterize
+    with torch.no_grad():
+        normals = R.gaussian_flat_normals(q, s, m, cam.origin)
+        dt = R.dense_table(m, q, s, o, c, cam, rd, normals=normals)
+    grid = TileGrid(cam.width, cam.height, rd.tile_size)
+    T, P, B = grid.num_tiles, grid.pixels_per_tile, rd.pallas_chunk
+    tx, ts = grid.tiles_x, rd.tile_size
+    table, counts = dt.table.contiguous(), dt.counts.contiguous()
+    ids = torch.arange(T, dtype=torch.int32, device=dev)
+    out_f, logt_f = C2.composite2_fwd_cuda(table, counts, ids, tx, ts, B)[:2]
+    g_out, g_logt = cotangents(T, C, P)
+    for n in SHARD_SPLITS:
+        t_loc = -(-T // n)
+        outs, logts = [], []
+        for me in range(n):
+            r = slice(me * t_loc, min((me + 1) * t_loc, T))
+            tb, cn, ti = (x[r].contiguous() for x in (table, counts, ids))
+            o_k, lt, carries, nused, acc = C2.composite2_fwd_cuda(
+                tb, cn, ti, tx, ts, B)
+            torch.cuda.synchronize()
+            o_p, lt_p, _, nused_p, _ = C2.composite2_fwd_plain(tb, cn, ti, tx,
+                                                               ts, B)
+            if not torch.equal(nused, nused_p):
+                raise RuntimeError(f"sharded: K3 block {me}/{n}: nused "
+                                   "differs from the plain version's")
+            hold("composite2_fwd", f"K3 block {me}/{n} out",
+                 max_err(o_k, o_p), TOL_OUT)
+            hold("composite2_fwd", f"K3 block {me}/{n} alpha",
+                 max_err(torch.exp(lt), torch.exp(lt_p)), TOL_ALPHA)
+            bwd_args = (tb, nused, ti, g_out[r].contiguous(),
+                        g_logt[r].contiguous(), lt, carries, acc, tx, ts, B)
+            dtab = C2.composite2_bwd_cuda(*bwd_args)
+            torch.cuda.synchronize()
+            errs["composite2_bwd"] = max(
+                errs["composite2_bwd"],
+                check_columns(f"K4 block {me}/{n} at tile ids {r.start}..",
+                              dtab, C2.composite2_bwd_plain(*bwd_args)))
+            outs.append(o_k)
+            logts.append(lt)
+        hold("composite2_fwd", f"K3's {n} blocks against the unsharded",
+             max_err(torch.cat(outs), out_f), TOL_OUT)
+        hold("composite2_fwd", f"K3's {n} blocks' alpha",
+             max_err(torch.exp(torch.cat(logts)), torch.exp(logt_f)),
+             TOL_ALPHA)
+    log("sharded: K1/K2 at tile_lo and K3/K4 at offset tile ids, "
+        f"{list(SHARD_SPLITS)} blocks of view 0, against their plain "
+        f"versions and the unsharded kernels: max|d| {errs}")
+    return errs
+
+
+def _state_digest(torch, tr) -> str:
+    """sha256 of a ShardedTrainer's store, gathered moments and stats."""
+    import hashlib
+
+    opt = tr.full_opt()
+    h = hashlib.sha256()
+    for t in [*tr.gaussians.fields().values(),
+              *(v for tree in (opt.m, opt.v, opt.acc, opt.counts)
+                for v in tree.values()), *tr.stats.fields().values()]:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sharded_work(torch, dev, scene, cfgs, out_dir):
+    """One rank's share of the sharded phase: the one-step check, then the
+    flat and the dense ShardedTrainer (ZeRO-1). Returns, on rank 0, what the
+    parent reports; launch counts and digests are gathered over the ranks."""
+    import torch.distributed as dist
+
+    from fusionsense_tpu_torch.core.cameras import Camera
+    from fusionsense_tpu_torch.gaussians.adc import init_stats
+    from fusionsense_tpu_torch.gaussians.store import GaussianState
+    from fusionsense_tpu_torch.parallel import comm
+    from fusionsense_tpu_torch.parallel.mesh import make_mesh
+    from fusionsense_tpu_torch.parallel.sharded import (
+        gather_opt, make_sharded_train_step, shard_opt,
+    )
+    from fusionsense_tpu_torch.parallel.trainer import ShardedTrainer
+    from fusionsense_tpu_torch.render import composite2 as C2
+    from fusionsense_tpu_torch.render import flat_composite as FC
+    from fusionsense_tpu_torch.train.optim import adam_step, init_adam
+    from fusionsense_tpu_torch.train.trainer import TrainData, compute_losses
+
+    mesh = make_mesh(**SHARD_AXES, device=dev)
+    cams = Camera(**scene["camera"])
+    data = TrainData(**scene["data"])
+    init = GaussianState(**scene["init"])
+    flat_cfg, dense_cfg = cfgs
+    rank0 = mesh.rank == 0
+    res = {}
+    views = list(range(mesh.shape["data"]))
+
+    def fresh():
+        return init.replace(**{k: v.clone() for k, v in init.fields().items()})
+
+    def cam_state():
+        z6 = torch.zeros((cams.viewmat.shape[0], 6), device=dev)
+        return z6, init_adam({"cam_delta": z6})
+
+    # 1. one sharded step from the initial state, replicated and ZeRO-1
+    step_cfg = dataclasses.replace(flat_cfg, model=dataclasses.replace(
+        flat_cfg.model, rasterize=dataclasses.replace(
+            flat_cfg.model.rasterize, tile_capacity=SHARD_TILE_CAPACITY)))
+    got = {}
+    for zero in (False, True):
+        g = fresh()
+        opt = init_adam(g.params())
+        if zero:
+            opt = shard_opt(mesh, opt)
+        step = make_sharded_train_step(step_cfg, cams, data, mesh,
+                                       shard_optimizer=zero)
+        g2, opt2, _, _, metrics = step(g, opt, cam_state(),
+                                       init_stats(g.capacity, dev), 0, views)
+        if zero:
+            opt2 = gather_opt(mesh, opt2)
+        got[zero] = (g2.params(), opt2.m, metrics)
+    if rank0:
+        g = fresh()
+        grads = None
+        for v in views:
+            params = {k: p.detach().requires_grad_(True)
+                      for k, p in g.params().items()}
+            tap = torch.zeros((g.capacity, 2), device=dev, requires_grad=True)
+            total, (_, aux) = compute_losses(g.replace(**params), cams, data, v,
+                                             0, step_cfg, tap)
+            if int(aux["overflow"]):
+                raise RuntimeError(f"sharded: the single-device reference "
+                                   f"dropped {int(aux['overflow'])} pairs "
+                                   f"of view {v} ({int(aux['pairs_used'])} "
+                                   f"kept)")
+            gi = torch.autograd.grad(total, list(params.values()),
+                                     allow_unused=True)
+            gi = {k: torch.zeros_like(params[k]) if x is None else x
+                  for k, x in zip(params, gi)}
+            grads = gi if grads is None else {k: grads[k] + gi[k] for k in gi}
+        grads = {k: x / len(views) for k, x in grads.items()}
+        ref_p, ref_opt = adam_step(g.params(), grads, init_adam(g.params()),
+                                   0, g.alive)
+
+        def past(a, b, atol, rtol):
+            """max|a - b| and the elements past atol + rtol |b|."""
+            d = (a - b).abs()
+            return float(d.max()), int((d > atol + rtol * b.abs()).sum())
+
+        def scaled(a, b, limit):
+            """max|a - b| / max|b|, and 1 where it is past `limit` (or not
+            a number: a zero reference holds nothing)."""
+            r = float((a - b).abs().max() / b.abs().max())
+            return r, int(not r <= limit)
+
+        p_rep, m_rep, met = got[False]
+        p_z1, m_z1, _ = got[True]
+        res["step"] = {
+            "means": past(p_rep["means"], ref_p["means"], **TOL_SHARD),
+            "m.means": past(m_rep["means"], ref_opt.m["means"],
+                            **TOL_SHARD_M),
+            "m.means / max|m_ref|": scaled(m_rep["means"], ref_opt.m["means"],
+                                           TOL_SHARD_SCALE),
+            "max|m_ref.means|": float(ref_opt.m["means"].abs().max()),
+            "zero1 means": past(p_z1["means"], p_rep["means"], **TOL_ZERO1),
+            "zero1 features_dc": past(p_z1["features_dc"],
+                                      p_rep["features_dc"], **TOL_ZERO1),
+            "zero1 m.means": past(m_z1["means"], m_rep["means"], **TOL_ZERO1),
+            "zero1 m.means / max|m|": scaled(m_z1["means"], m_rep["means"],
+                                             TOL_ZERO1_SCALE),
+            "overflow": int(met["overflow"]), "loss": float(met["loss"])}
+
+    # 2. the trainers: ZeRO-1, a refine every SHARD_ADC, logged every
+    # SHARD_LOG; launches, the collectives and the state's digest per run
+    res["runs"] = {}
+    for name, cfg in (("flat", flat_cfg), ("dense", dense_cfg)):
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, iterations=SHARD_STEPS, log_every=SHARD_LOG,
+            adc=dataclasses.replace(cfg.train.adc, **SHARD_ADC)))
+        tr = ShardedTrainer(cfg, cams, data, fresh(), mesh,
+                            shard_optimizer=True)
+        psnr0 = view_psnr(torch, tr, 0) if rank0 else None
+        FC.reset_launch_counts()
+        C2.reset_launch_counts()
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        tr.run(log=None)
+        torch.cuda.synchronize()
+        dist.barrier()
+        secs = time.perf_counter() - t0
+        launches = {**FC.LAUNCHES, **C2.LAUNCHES}
+        calls = {f"{op} calls": n for op, n in comm.COUNTS.items()}
+        sent = {f"{op} MB": comm.BYTES[op] / 1e6 for op in comm.OPS}
+        keys = sorted(launches)
+        summed = torch.tensor([launches[k] for k in keys], device=dev)
+        dist.all_reduce(summed)
+        digests = [None] * mesh.size
+        dist.all_gather_object(digests, _state_digest(torch, tr))
+        if name == "flat":
+            tr.save(out_dir / "ckpt_flat")
+        if rank0:
+            res["runs"][name] = {
+                "ms_step": secs * 1e3 / SHARD_STEPS,
+                "launches": dict(zip(keys, summed.tolist())),
+                "rank0 collectives per step": {
+                    k: v / SHARD_STEPS for k, v in {**calls, **sent}.items()},
+                "digests equal": len(set(digests)) == 1,
+                "logged psnr": [(r["step"], r["psnr"]) for r in tr.history],
+                "view-0 psnr": (psnr0, view_psnr(torch, tr, 0)),
+                "alive": (int(init.num_alive), int(tr.gaussians.num_alive)),
+                "nonfinite": sum(r["nonfinite_steps"] for r in tr.history),
+                "render_n": tr.render_n, "capacity": tr.gaussians.capacity}
+
+    # what the step's collectives cost alone, at the flat run's sizes: the
+    # parameter gradients (ZeRO-1's SUM over the shard axes, then its
+    # reduce-scatter over data), the image block's gather over tile
+    width = sum(x[0].numel() for x in init.params().values())
+    grads = torch.ones(init.capacity * width, device=dev)
+    block = torch.ones(_shard_pixels(cams, flat_cfg, mesh), device=dev)
+    timed = {}
+    for name, fn in (
+            ("SUM over tile x gauss", lambda: comm.psum(
+                mesh, grads, ("tile", "gauss"))),
+            ("reduce-scatter over data", lambda: comm.psum_scatter(
+                mesh, grads.reshape(mesh.shape["data"], -1), "data")),
+            ("image block all_gather over tile", lambda: comm.all_gather(
+                mesh, block, "tile"))):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        timed[name] = (time.perf_counter() - t0) * 1e3 / 5
+    if rank0:
+        res["collective ms"] = timed
+        res["collective MB"] = (grads.numel() * 4 / 1e6,
+                                block.numel() * 4 / 1e6)
+    return res
+
+
+def _shard_pixels(cams, cfg, mesh):
+    """Values of one rank's composited tile block: T_loc tiles x P pixels x
+    (7 channels and alpha)."""
+    from fusionsense_tpu_torch.parallel.sharded import tile_block
+    from fusionsense_tpu_torch.render.composite import TileGrid
+
+    grid = TileGrid(cams.width, cams.height, cfg.model.rasterize.tile_size)
+    _, t_loc, _ = tile_block(grid.num_tiles, mesh.shape["tile"], 0)
+    return t_loc * grid.pixels_per_tile * 8
+
+
+def _sharded_rank(rank, url, scene_path, cfgs, out_dir, results):
+    """A spawned rank of the sharded phase: start the rank on the card
+    (parallel.mesh.init_ranks: gloo, the ranks share it), run its share and
+    report (rank, ok, result or traceback)."""
+    import os
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SHARD_RANKS),
+                      LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(SHARD_RANKS))
+    try:
+        import torch
+
+        from fusionsense_tpu_torch.parallel.mesh import init_ranks
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = init_ranks(init_method=url)
+        scene = torch.load(scene_path, map_location=dev, weights_only=True)
+        out = _sharded_work(torch, dev, scene, cfgs, out_dir)
+        torch.distributed.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:   # noqa: BLE001 - reported to the parent
+        results.put((rank, False, traceback.format_exc()))
+
+
+def _spawn_ranks(target, args, n, wait):
+    """Run target(rank, *args, results) in n spawned processes; returns rank
+    0's result. Any rank's failure or death, or a rank silent for `wait`
+    seconds, kills them all and raises."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, *args, results))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    out, deadline = {}, time.monotonic() + wait
+    try:
+        while len(out) < n:
+            try:
+                rank, ok, res = results.get(timeout=2.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in out]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(f"sharded: ranks {dead} died" if dead
+                                       else f"sharded: no answer in {wait} s")
+                continue
+            if not ok:
+                raise RuntimeError(f"sharded: rank {rank} failed:\n{res}")
+            out[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30 if len(out) == n else 0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return out[0]
+
+
+def _fs_train_torchrun(scene, out_root, dev, card):
+    """fs-train --device-mesh through torchrun on the capture: 8 ranks on
+    the card, an empty --mesh, the flat backend; rank 0's artifacts read
+    back and its logged PSNR rising. Returns (seconds, psnr log)."""
+    import re
+
+    from fusionsense_tpu_torch.train.checkpoint import load_checkpoint_full
+    from fusionsense_tpu_torch.utils.ply import read_pcd
+
+    mesh_flag = ",".join(f"{k}={v}" for k, v in SHARD_AXES.items())
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(SHARD_RANKS), "-m",
+           "fusionsense_tpu_torch.cli.train", "--data", str(scene),
+           "--output-dir", str(out_root), "--backend", "flat",
+           "--iterations", str(SHARD_CLI_ITERS), "--warmup-length",
+           str(SHARD_CLI_WARMUP), "--stop-split-at",
+           str(SHARD_CLI_WARMUP + 500), "--steps-per-save",
+           str(SHARD_CLI_ITERS), "--mesh", "--device-mesh", mesh_flag]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=SHARD_WAIT, cwd=Path(__file__).resolve().parent)
+    secs = time.perf_counter() - t0
+    (out_root / "torchrun.log").parent.mkdir(parents=True, exist_ok=True)
+    (out_root / "torchrun.log").write_text(run.stdout + run.stderr)
+    if run.returncode:
+        raise RuntimeError(f"sharded: torchrun fs-train exited "
+                           f"{run.returncode}:\n{run.stderr[-4000:]}")
+    psnr = [(int(a), float(b)) for a, b in re.findall(
+        r"step\s+(\d+)\s+loss\s+\S+\s+psnr\s+(\S+)", run.stdout)]
+    rule = [ln for ln in run.stdout.splitlines()
+            if ln.startswith("fusionsense_tpu_torch.parallel:")]
+    out = out_root / "dn_splatter"
+    g, _, _, step, _, meta = load_checkpoint_full(
+        out / f"ckpt_{SHARD_CLI_ITERS}", device=dev)
+    metrics = json.loads((out / "metrics.json").read_text())["mean"]
+    hg = read_pcd(out / "high_grad_pts.pcd")
+    log(f"sharded: fs-train --device-mesh {mesh_flag} through torchrun "
+        f"({SHARD_RANKS} ranks sharing one card, not a scaling number): "
+        f"{SHARD_CLI_ITERS} steps in {secs:.1f} s wall (start-up, eval and "
+        f"saves included); {rule}; logged PSNR {psnr}; ckpt_{step}: "
+        f"{int(g.num_alive)} alive; metrics.json psnr "
+        f"{metrics.get('psnr')}; high-grad points {len(hg['points'])}; {card}")
+    if not (step == SHARD_CLI_ITERS and len(psnr) >= 2
+            and psnr[-1][1] > psnr[0][1] and meta["history"]
+            and math.isfinite(metrics.get("psnr", math.nan))):
+        raise RuntimeError(f"sharded: torchrun fs-train's artifacts or PSNR "
+                           f"fail: step {step}, PSNR {psnr}")
+    return secs, psnr
+
+
+def sharded_path(torch, dev, card, cams, data, init, cfg):
+    """The sharded phase: K1-K4 at the blocks' global tiles in this process,
+    then the one-step check and the two ShardedTrainer runs in SHARD_RANKS
+    spawned ranks, rank 0's checkpoint restored into a single-device
+    Trainer, and fs-train --device-mesh through torchrun. Returns (errs,
+    launches summed over the ranks)."""
+    import shutil
+
+    from fusionsense_tpu_torch.train.trainer import Trainer
+
+    errs = check_sharded_kernels(torch, cams, init, cfg)
+    root = SCRATCH / "sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cpu = lambda x: x.detach().cpu()  # noqa: E731
+    torch.save({
+        "camera": {"viewmat": cpu(cams.viewmat), "fx": cpu(cams.fx),
+                   "fy": cpu(cams.fy), "cx": cpu(cams.cx), "cy": cpu(cams.cy),
+                   "width": cams.width, "height": cams.height},
+        "data": {f.name: cpu(getattr(data, f.name))
+                 for f in dataclasses.fields(data)
+                 if getattr(data, f.name) is not None},
+        "init": {k: cpu(v) for k, v in init.fields().items()}},
+        root / "scene.pt")
+    t0 = time.perf_counter()
+    res = _spawn_ranks(_sharded_rank,
+                       (f"file://{root}/rendezvous", str(root / "scene.pt"),
+                        (cfg, dense_config()), root),
+                       SHARD_RANKS, SHARD_WAIT)
+    spawn_s = time.perf_counter() - t0
+    log(f"sharded: collectives alone on {SHARD_RANKS} ranks sharing one card "
+        f"(gloo), the gradient buffer and the image block "
+        f"{res['collective MB']} MB: {res['collective ms']} ms; {card}")
+    st = res["step"]
+    log(f"sharded: one step on {SHARD_RANKS} ranks "
+        f"({', '.join(f'{k}={v}' for k, v in SHARD_AXES.items())}) against "
+        f"the single-device batch-mean step, (max|d|, elements past the "
+        f"limit) or (max|d| / max|reference|, past the limit): {st}")
+    if any(v[1] for k, v in st.items() if isinstance(v, tuple)) or \
+            st["overflow"]:
+        raise RuntimeError(f"sharded: the sharded step disagrees: {st}")
+    launches = {}
+    for name, r in res["runs"].items():
+        keys = (("flat_composite_fwd", "flat_composite_bwd") if name == "flat"
+                else ("composite2_fwd", "composite2_bwd"))
+        log(f"sharded {name}: ShardedTrainer ZeRO-1, {SHARD_STEPS} steps, "
+            f"{r['ms_step']:.1f} ms/step ({SHARD_RANKS} ranks sharing one "
+            f"card, not a scaling number); {card}; view-0 PSNR "
+            f"{r['view-0 psnr'][0]:.3f} -> {r['view-0 psnr'][1]:.3f}; logged "
+            f"PSNR {r['logged psnr']}; "
+            f"alive {r['alive'][0]} -> {r['alive'][1]}, render_n "
+            f"{r['render_n']}, capacity {r['capacity']}; launches summed "
+            f"over the ranks {r['launches']}; rank 0's collectives per step "
+            f"{r['rank0 collectives per step']}; the ranks' states "
+            f"bit-equal: {r['digests equal']}")
+        psnr = r["view-0 psnr"]
+        if not (r["digests equal"] and r["nonfinite"] == 0
+                and psnr[1] > psnr[0] and r["alive"][1] != r["alive"][0]):
+            raise RuntimeError(f"sharded {name}: {r}")
+        if any(r["launches"][k] < SHARD_STEPS * SHARD_RANKS for k in keys) \
+                or any(r["launches"][f"{k}_plain"] for k in keys):
+            raise RuntimeError(f"sharded {name}: launches {r['launches']}")
+        launches.update({k: r["launches"][k] for k in keys})
+
+    # rank 0's checkpoint into the single-device trainer
+    tr = Trainer(cfg, cams, data, init.replace(
+        **{k: v.clone() for k, v in init.fields().items()}), device=dev)
+    tr.restore(root / "ckpt_flat")
+    step0 = tr.step
+    tr.run(iterations=step0 + SHARD_RESUME_STEPS, log=None)
+    loss = tr.history[-1]["loss"]
+    log(f"sharded: rank 0's ckpt_flat (step {step0}) restored into a "
+        f"single-device Trainer, {SHARD_RESUME_STEPS} more steps: loss "
+        f"{loss:.5f}; ranks spawned, checked and run in {spawn_s:.1f} s")
+    if not (step0 == SHARD_STEPS and math.isfinite(loss)):
+        raise RuntimeError(f"sharded: the restored run fails: {loss}")
+
+    # fs-train --device-mesh through torchrun on a copy of the capture
+    shutil.copytree(SCRATCH / "blob", root / "blob")
+    _fs_train_torchrun(root / "blob", root / "cli", dev, card)
+    return errs, launches
+
+
 def main():
     import torch
 
@@ -2739,6 +3343,8 @@ def main():
     init_jax = init.replace(**{k: v.clone() for k, v in init.fields().items()})
     init_fused = [init.replace(**{k: v.clone() for k, v in init.fields().items()})
                   for _ in range(2)]
+    init_sharded = init.replace(
+        **{k: v.clone() for k, v in init.fields().items()})
     tr = Trainer(cfg, cams, data, init, device=dev)
     torch.cuda.synchronize()
     log(f"scene: {time.perf_counter() - t0:.1f} s (GT budget {gt_budget}); "
@@ -2836,8 +3442,18 @@ def main():
         k["launches"] += viewer_launches[f"composite2_{key}"]
     # 18. the NeRF baseline on the pipeline's capture (no K1-K4)
     nerf_path(torch, dev, (FC, C2), card, SCRATCH / "blob")
+    # 19. the sharded phase: K1-K4 at the blocks' global tiles, then 8 ranks
+    # sharing the card: one step, the flat and dense ShardedTrainer, and
+    # fs-train --device-mesh through torchrun
+    shard_errs, shard_launches = sharded_path(torch, dev, card, cams, data,
+                                              init_sharded, cfg)
+    for k, key in zip(kernels + fs_kernels,
+                      ("flat_composite_fwd", "flat_composite_bwd",
+                       "composite2_fwd", "composite2_bwd")):
+        k["launches"] += shard_launches[key]
+        k["max_abs_err"] = max(k["max_abs_err"], shard_errs[key])
 
-    # 19. results
+    # 20. results
     print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
 """fs-train in the port: end-to-end reconstruction from a capture on disk.
 
     python -m fusionsense_tpu_torch.cli.train --data <scene>
+    torchrun --nproc-per-node 8 -m fusionsense_tpu_torch.cli.train \
+        --data <scene> --device-mesh data=2,tile=2,gauss=2
 
 The flags, their defaults and choices are those of fusionsense_tpu's
 fs-train: after training, the meshes of --mesh (tsdf and sugar-coarse by
 default; an empty --mesh extracts none) go to the output directory, then
 the train split is evaluated; --viewer serves the live model while it
-trains. The run is on the card. --device-mesh, whose code is not ported
-yet, raises before any training, naming its ROADMAP item (A18).
+trains. The run is on the card. --device-mesh trains on a data x tile x
+gauss mesh of ranks, one process per rank as torchrun starts them (the
+axes multiply to the number of processes; parallel/mesh.py states the
+backend rule: nccl with a card per rank, gloo where ranks share a card);
+rank 0 alone writes the checkpoints, meshes, metrics.json and the log. A
+mesh that does not fit the ranks raises before the scene is read.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ def build_parser():
     p.add_argument("--viewer-port", type=int, default=7007)
     p.add_argument("--device-mesh", default=None,
                    help="multi-device axis spec, e.g. data=2,tile=2,gauss=2 "
-                        "(not ported)")
+                        "(axes multiply to the number of ranks)")
     return p
 
 
@@ -111,6 +117,8 @@ def main(argv=None, device=None):
     )
     pipe = ReconstructionPipeline(cfg, device=device)
     pipe.train()
+    if not pipe.writer:
+        return pipe
     for method in args.mesh:
         verts, faces, path = pipe.extract_mesh(method)
         print(f"mesh[{method}]: {len(verts)} verts -> {path}")
@@ -121,4 +129,6 @@ def main(argv=None, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    pipe = main()
+    if pipe.mesh is not None:
+        pipe.mesh.close()

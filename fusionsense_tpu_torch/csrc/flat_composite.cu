@@ -180,7 +180,8 @@ __global__ void fwd_blocks_kernel(const float* __restrict__ table,
                                   float* __restrict__ acc_out,
                                   float* __restrict__ sacc_out,
                                   int* __restrict__ kept, int num_tiles,
-                                  int tiles_x, int tile_size, int B) {
+                                  int tiles_x, int tile_size, int B,
+                                  int tile_lo) {
   constexpr int W = 8 + C;
   extern __shared__ float smem[];
   float* s_tab = smem;                                       // B * W
@@ -195,11 +196,12 @@ __global__ void fwd_blocks_kernel(const float* __restrict__ table,
   for (int c = 0; c < C; ++c) acc[c] = sacc[c] = 0.0f;
   int n = 0;
   if (blk_count[b] > 0) {   // uniform over the CTA
-    const int t = tile_of(runs, num_tiles, b);
+    // the pixels and the cull are those of the block's global tile
+    const int gt = tile_of(runs, num_tiles, b) + tile_lo;
     n = stage_kept<W>(s_tab, s_pos, s_warp, table + (size_t)b * B * W, B,
-                      true, t, tiles_x, tile_size);
+                      true, gt, tiles_x, tile_size);
     fs::composite_block<C, BF16>(s_tab, n,
-                                 fs::pixel_of(t, tiles_x, tile_size, p),
+                                 fs::pixel_of(gt, tiles_x, tile_size, p),
                                  log_t, acc, sacc);
   }
   if (p == 0) kept[b] = n;
@@ -324,7 +326,8 @@ __global__ void bwd_blocks_kernel(const float* __restrict__ table,
                                   const float* __restrict__ carry,
                                   const float* __restrict__ S,
                                   float* __restrict__ dtab, int num_tiles,
-                                  int tiles_x, int tile_size, int B) {
+                                  int tiles_x, int tile_size, int B,
+                                  int tile_lo) {
   constexpr int W = 8 + C;
   extern __shared__ float smem[];
   const int P = blockDim.x;
@@ -354,15 +357,16 @@ __global__ void bwd_blocks_kernel(const float* __restrict__ table,
   const float L =
       (b + 1 < runs[t + 1]) ? carry[(size_t)(b + 1) * P + p] : logt_fin;
   const bool cull = __syncthreads_and(finite && isfinite(L));
+  const int gt = t + tile_lo;   // the block's global tile: pixels and cull
   const int n = stage_kept<W>(s_tab, s_pos, s_warp, table + (size_t)b * B * W,
-                              B, cull, t, tiles_x, tile_size);
+                              B, cull, gt, tiles_x, tile_size);
   // block_backward walks groups of kGroup rows: pad with inert rows
   const int n_pad = (n + kGroup - 1) / kGroup * kGroup;
   for (int i = n * W + p; i < n_pad * W; i += P)
     s_tab[i] = (i % W == 5) ? kInertLogOp : 0.0f;
   __syncthreads();
   fs::block_backward<C, BF16>(s_tab, s_part, s_out, n_pad,
-                        fs::pixel_of(t, tiles_x, tile_size, p), g, glt,
+                        fs::pixel_of(gt, tiles_x, tile_size, p), g, glt,
                         expf(logt_fin), L, S[(size_t)b * P + p]);
   for (int i = p; i < B * W; i += P) {
     const int pos = s_pos[i / W];
@@ -382,20 +386,24 @@ size_t bwd_blocks_smem(int P, int B, int C) {
 
 }  // namespace
 
-// num_tiles counts the dummy tile: runs has num_tiles + 1 entries.
+// num_tiles counts the dummy tile: runs has num_tiles + 1 entries. tile_lo
+// is the global id of local tile 0 (0 on one device; me * T_loc on shard
+// `me` of a tile-sharded mesh): runs, g_out, logt and the blocks are local,
+// the pixel centres and the row cull are those of tile + tile_lo.
 
 extern "C" int fs_flat_fwd_blocks(const float* table, const int* runs,
                                   const int* blk_count, float* delta,
                                   float* acc, float* sacc, int* kept,
                                   int num_blocks, int num_tiles, int tiles_x,
                                   int tile_size, int B, int C, int bf16,
-                                  void* stream) {
+                                  int tile_lo, void* stream) {
   if (C != 8) return (int)cudaErrorInvalidValue;
   if (num_blocks == 0) return 0;
   auto kernel = bf16 ? fwd_blocks_kernel<8, true> : fwd_blocks_kernel<8, false>;
   kernel<<<num_blocks, tile_size * tile_size, fwd_blocks_smem(B, C),
            (cudaStream_t)stream>>>(table, runs, blk_count, delta, acc, sacc,
-                                   kept, num_tiles, tiles_x, tile_size, B);
+                                   kept, num_tiles, tiles_x, tile_size, B,
+                                   tile_lo);
   return (int)cudaGetLastError();
 }
 
@@ -436,7 +444,7 @@ extern "C" int fs_flat_bwd_blocks(const float* table, const int* runs,
                                   const float* carry, const float* S,
                                   float* dtab, int num_blocks, int num_tiles,
                                   int tiles_x, int tile_size, int B, int C,
-                                  int bf16, void* stream) {
+                                  int bf16, int tile_lo, void* stream) {
   if (C != 8) return (int)cudaErrorInvalidValue;
   if (num_blocks == 0) return 0;
   const int P = tile_size * tile_size;
@@ -447,6 +455,6 @@ extern "C" int fs_flat_bwd_blocks(const float* table, const int* runs,
   if (err != cudaSuccess) return (int)err;
   kernel<<<num_blocks, P, smem, (cudaStream_t)stream>>>(
       table, runs, live, g_out, g_logt, logt, carry, S, dtab, num_tiles,
-      tiles_x, tile_size, B);
+      tiles_x, tile_size, B, tile_lo);
   return (int)cudaGetLastError();
 }

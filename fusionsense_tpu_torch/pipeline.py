@@ -13,7 +13,12 @@ Generated priors are written in capture coordinates and registered in the
 scene's transforms.json, so later runs reuse them. With `viewer`, the live
 splat viewer serves the model while Trainer.run trains it.
 
-Not ported yet (raises, naming its ROADMAP item): the device mesh (A18).
+With `device_mesh` ("data=2,tile=2,gauss=2") the run trains on a mesh of
+that many ranks, one process each (torchrun; parallel/): every rank reads
+the scene and builds the priors, a ShardedTrainer starts every rank from
+rank 0's state, and only rank 0 (`writer`) writes artifacts, checkpoints,
+meshes, metrics.json and the log. The mesh is made before the scene is
+read, so a mesh that does not fit the ranks raises first.
 """
 from __future__ import annotations
 
@@ -54,34 +59,45 @@ class PipelineConfig:
     output_dir: str = "outputs"
     viewer: bool = False          # serve the live WebGL splat viewer
     viewer_port: int = 7007
-    device_mesh: Optional[str] = None   # multi-device axes: not ported (A18)
+    device_mesh: Optional[str] = None   # e.g. "data=2,tile=2,gauss=2"
     resume: Optional[str] = None  # a Trainer.save checkpoint to resume from
-
-
-def check_slice(cfg: PipelineConfig) -> None:
-    """Raise on pipeline options whose code is not ported yet."""
-    if cfg.device_mesh:
-        raise NotImplementedError(
-            f"device_mesh={cfg.device_mesh!r}: multi-device training is not "
-            "ported (ROADMAP A18)")
 
 
 class ReconstructionPipeline:
     def __init__(self, cfg: PipelineConfig, device=None):
-        check_slice(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = None
+        if cfg.device_mesh:
+            from fusionsense_tpu_torch.parallel.mesh import (
+                make_mesh, parse_axes,
+            )
+
+            axes = parse_axes(cfg.device_mesh)
+            n_dev = 1
+            for v in axes.values():
+                n_dev *= v
+            self.mesh = make_mesh(n_dev, **axes, device=device)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
+        self.writer = self.mesh is None or self.mesh.rank == 0
         self.out = Path(cfg.output_dir)
         self.out.mkdir(parents=True, exist_ok=True)
         self.scene = parse_transforms(cfg.data, device=self.device)
         self.camera, self.data = load_train_data(self.scene, cfg.data, "train")
+        if self.mesh is not None:
+            # every rank has read transforms.json before rank 0 registers
+            # generated priors in it
+            torch.distributed.barrier()
         self.hull_points: Optional[np.ndarray] = None
-        self.trainer: Optional[Trainer] = None
+        self.trainer = None
         self.viewer_server = None
 
     def _register_artifact(self, key: str, path):
         """Point transforms.json's `key` at a generated prior, so later runs
         reuse it (read-only datasets keep it in output_dir only)."""
+        if not self.writer:
+            return
         tj = Path(self.cfg.data.data_dir) / "transforms.json"
         try:
             with open(tj) as f:
@@ -103,8 +119,9 @@ class ReconstructionPipeline:
             self.hull_points = visual_hull(self.data.masks, self.camera)
             # artifacts are stored in capture coordinates: the dataparser
             # re-applies the scene normalisation on load
-            write_ply(self.out / "foreground_pcd.ply",
-                      scene.untransform_points(self.hull_points))
+            if self.writer:
+                write_ply(self.out / "foreground_pcd.ply",
+                          scene.untransform_points(self.hull_points))
             self._register_artifact("object_pc_path",
                                     self.out / "foreground_pcd.ply")
 
@@ -126,8 +143,9 @@ class ReconstructionPipeline:
         pts_np, rgb_np = seed_pcd_from_depths(depth_src, self.data.images,
                                               self.camera,
                                               hull_points=self.hull_points)
-        write_ply(self.out / "merged_pcd.ply",
-                  scene.untransform_points(pts_np), colors=rgb_np)
+        if self.writer:
+            write_ply(self.out / "merged_pcd.ply",
+                      scene.untransform_points(pts_np), colors=rgb_np)
         self._register_artifact("ply_file_path", self.out / "merged_pcd.ply")
         return on_dev(pts_np), on_dev(rgb_np), None
 
@@ -166,7 +184,7 @@ class ReconstructionPipeline:
                 return False
             callbacks.append(touch_cb)
 
-        if cfg.high_grad_export:
+        if cfg.high_grad_export and self.writer:
             def high_grad_cb(tr):
                 target = ec.train.adc.stop_split_at - 500
                 if not state["high_grad_done"] and tr.step >= target:
@@ -179,7 +197,7 @@ class ReconstructionPipeline:
                         log(f"high-grad export: {n} points")
             callbacks.append(high_grad_cb)
 
-        if cfg.viewer:
+        if cfg.viewer and self.writer:
             from fusionsense_tpu_torch.viewer import (
                 SplatViewerServer, ViewerCallback,
             )
@@ -207,11 +225,20 @@ class ReconstructionPipeline:
 
         state = {"touch_added": False, "high_grad_done": False}
         boxes_ref = {}
-        self.trainer = Trainer(ec, self.camera, self.data, gaussians,
-                               scene_scale=1.0,
-                               extra_callbacks=self._callbacks(
-                                   state, boxes_ref, log),
-                               device=self.device)
+        callbacks = self._callbacks(state, boxes_ref, log)
+        if self.mesh is not None:
+            from fusionsense_tpu_torch.parallel.trainer import ShardedTrainer
+
+            # ZeRO-1 whenever the capacity divides the data axis (JAX's
+            # PipelineConfig.shard_optimizer, which no caller turns off)
+            self.trainer = ShardedTrainer(
+                ec, self.camera, self.data, gaussians, self.mesh,
+                scene_scale=1.0, extra_callbacks=callbacks,
+                shard_optimizer=capacity % self.mesh.shape["data"] == 0)
+        else:
+            self.trainer = Trainer(ec, self.camera, self.data, gaussians,
+                                   scene_scale=1.0, extra_callbacks=callbacks,
+                                   device=self.device)
         self.trainer.checkpoint_dir = str(self.out)
         self.trainer.image_log_dir = str(self.out / "log_images")
         if self.cfg.resume:
@@ -224,7 +251,7 @@ class ReconstructionPipeline:
                 state["touch_added"] = True
                 boxes_ref["boxes"] = TouchBoxes.from_patches(
                     self.scene.touch_patches, self.device)
-            if log:
+            if log and self.writer:
                 log(f"resumed from {self.cfg.resume} at step "
                     f"{self.trainer.step}")
         hist = self.trainer.run(log=log)

@@ -109,16 +109,17 @@ def block_tiles(runs: torch.Tensor, nb: int) -> torch.Tensor:
     return torch.searchsorted(runs[:-1].contiguous(), b, right=True) - 1
 
 
-def cull_rows(table, blk_tile, tiles_x, tile_size, B=128):
+def cull_rows(table, blk_tile, tiles_x, tile_size, B=128, tile_lo=0):
     """(nb, B) bool: rows that give alpha = 0 and alive = False at every
     pixel of their block's tile: finite, log_op <= -15, a PSD conic, and the
     conic's quadratic form bounded over the tile (csrc/flat_composite.cu
-    states the argument)."""
+    states the argument). blk_tile holds local tile ids; the tile's pixels
+    are those of global tile blk_tile + tile_lo."""
     PB, W = table.shape
     rows = table.reshape(PB // B, B, W)
     mx, my = rows[..., 0], rows[..., 1]
     ca, cb, cc, lo = rows[..., 2], rows[..., 3], rows[..., 4], rows[..., 5]
-    tile = blk_tile.long()
+    tile = blk_tile.long() + tile_lo
     x0 = ((tile % tiles_x) * tile_size).to(torch.float32)[:, None] + 0.5
     y0 = ((tile // tiles_x) * tile_size).to(torch.float32)[:, None] + 0.5
     span = float(tile_size - 1)
@@ -132,9 +133,12 @@ def cull_rows(table, blk_tile, tiles_x, tile_size, B=128):
 
 # ------------------------------------------------------------ plain ------
 
-def _pixel_xy(tile: torch.Tensor, tiles_x: int, tile_size: int, P: int):
-    """Pixel centers (t, 1, P) of the given tile ids."""
+def _pixel_xy(tile: torch.Tensor, tiles_x: int, tile_size: int, P: int,
+              tile_lo: int = 0):
+    """Pixel centers (t, 1, P) of the given local tile ids, whose global ids
+    are tile + tile_lo."""
     ts = tile_size
+    tile = tile + tile_lo
     ox = ((tile % tiles_x) * ts).to(torch.float32)[:, None, None]
     oy = ((tile // tiles_x) * ts).to(torch.float32)[:, None, None]
     lane = torch.arange(P, device=tile.device)
@@ -170,7 +174,7 @@ def _at_position(start, length, k):
 
 
 def fwd_blocks_plain(table, runs, blk_count, tiles_x, tile_size, B=128,
-                     blend_bf16=False):
+                     blend_bf16=False, tile_lo=0):
     """Stage 1 of K1: every block with count > 0 composited by itself from
     T = 1. Returns delta (nb, P), the block's sum of log(1 - alpha), and
     acc (nb, C, P), its blend, zeros elsewhere; kept (nb,) int32, the rows
@@ -186,11 +190,12 @@ def fwd_blocks_plain(table, runs, blk_count, tiles_x, tile_size, B=128,
     acc = torch.zeros((nb, C, P), **f32)
     sacc = torch.zeros((nb, C, P), **f32) if blend_bf16 else acc
     kept = torch.where(
-        blk_count > 0, B - cull_rows(table, tile, tiles_x, tile_size, B).sum(1),
+        blk_count > 0,
+        B - cull_rows(table, tile, tiles_x, tile_size, B, tile_lo).sum(1),
         0).to(torch.int32)
     for bl in torch.nonzero(blk_count > 0).squeeze(1).split(_CHUNK):
         rows = tab[bl]
-        px, py = _pixel_xy(tile[bl], tiles_x, tile_size, P)
+        px, py = _pixel_xy(tile[bl], tiles_x, tile_size, P, tile_lo)
         alpha, _, _ = _alpha_of_rows(rows, px, py)
         lg = torch.log1p(-alpha)
         cum = torch.cumsum(lg, dim=1)
@@ -260,7 +265,7 @@ def bwd_suffix_plain(acc, carry, live, runs, g_out, blend_bf16=False):
 
 
 def bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
-                     tiles_x, tile_size, B=128, blend_bf16=False):
+                     tiles_x, tile_size, B=128, blend_bf16=False, tile_lo=0):
     """Stage 2 of K2: dtab (PB, 8 + C) of the live blocks, each replayed from
     its carry with its suffix S; dead blocks get zeros."""
     PB, W = table.shape
@@ -276,7 +281,7 @@ def bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
         go = g_out[tl]                                      # (t, C, P)
         glt = g_logt[tl][:, None, :]
         tf = t_fin[tl][:, None, :]
-        px, py = _pixel_xy(tl, tiles_x, tile_size, P)
+        px, py = _pixel_xy(tl, tiles_x, tile_size, P, tile_lo)
         alpha, alive, (dx, dy, ca, cb, cc) = _alpha_of_rows(rows, px, py)
         lg = torch.log1p(-alpha)
         cum = torch.cumsum(lg, dim=1)
@@ -307,35 +312,35 @@ def bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
 
 
 def flat_composite_fwd_plain(table, runs, blk_count, num_tiles, tiles_x,
-                             tile_size, B=128, blend_bf16=False):
+                             tile_size, B=128, blend_bf16=False, tile_lo=0):
     """Plain K1: returns (out (T+1, C, P), logT (T+1, P), carry (nb, P),
     sacc (nb, C, P), live (nb,) int32); sacc is fwd_blocks' blend for K2's
-    suffix."""
+    suffix. tile_lo is the global id of local tile 0."""
     LAUNCHES["flat_composite_fwd_plain"] += 1
     delta, acc, _, sacc = fwd_blocks_plain(table, runs, blk_count, tiles_x,
-                                           tile_size, B, blend_bf16)
+                                           tile_size, B, blend_bf16, tile_lo)
     carry, live, logt = fwd_scan_plain(delta, runs, blk_count)
     return fwd_combine_plain(acc, carry, live, runs), logt, carry, sacc, live
 
 
 def flat_composite_bwd_plain(table, runs, g_out, g_logt, logt, carry, acc,
                              live, tiles_x, tile_size, B=128,
-                             blend_bf16=False):
+                             blend_bf16=False, tile_lo=0):
     """Plain K2: g_out (T+1, C, P), g_logt/logt (T+1, P) and K1's carry,
     sacc (as acc) and live -> dtab (PB, 8 + C)."""
     LAUNCHES["flat_composite_bwd_plain"] += 1
     S = bwd_suffix_plain(acc, carry, live, runs, g_out, blend_bf16)
     return bwd_blocks_plain(table, runs, live, g_out, g_logt, logt, carry, S,
-                            tiles_x, tile_size, B, blend_bf16)
+                            tiles_x, tile_size, B, blend_bf16, tile_lo)
 
 
 # ----------------------------------------------------------- kernels ------
 
 _C_SUPPORTED = 8
 _FNS = {   # C entry point -> (pointer arguments, int arguments)
-    "fs_flat_fwd_blocks": (7, 7), "fs_flat_fwd_scan": (6, 2),
+    "fs_flat_fwd_blocks": (7, 8), "fs_flat_fwd_scan": (6, 2),
     "fs_flat_fwd_combine": (5, 3), "fs_flat_bwd_suffix": (6, 4),
-    "fs_flat_bwd_blocks": (9, 7),
+    "fs_flat_bwd_blocks": (9, 8),
 }
 
 
@@ -378,7 +383,7 @@ _F32, _I32 = torch.float32, torch.int32
 
 
 def fwd_blocks_cuda(table, runs, blk_count, tiles_x, tile_size, B=128,
-                    blend_bf16=False):
+                    blend_bf16=False, tile_lo=0):
     """Stage 1 of K1 on the card; same returns as fwd_blocks_plain."""
     _check_geometry(table, tile_size, B)
     PB, W = table.shape
@@ -392,7 +397,8 @@ def fwd_blocks_cuda(table, runs, blk_count, tiles_x, tile_size, B=128,
     kept = torch.empty((nb,), dtype=_I32, device=table.device)
     _launch("fs_flat_fwd_blocks",
             (table, runs, blk_count, delta, acc, sacc, kept),
-            (nb, runs.numel() - 1, tiles_x, tile_size, B, C, int(blend_bf16)))
+            (nb, runs.numel() - 1, tiles_x, tile_size, B, C, int(blend_bf16),
+             tile_lo))
     return delta, acc, kept, sacc
 
 
@@ -440,7 +446,7 @@ def bwd_suffix_cuda(acc, carry, live, runs, g_out, blend_bf16=False):
 
 
 def bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
-                    tiles_x, tile_size, B=128, blend_bf16=False):
+                    tiles_x, tile_size, B=128, blend_bf16=False, tile_lo=0):
     """Stage 2 of K2 on the card; same returns as bwd_blocks_plain."""
     _check_geometry(table, tile_size, B)
     PB, W = table.shape
@@ -454,18 +460,18 @@ def bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
     dtab = torch.empty((PB, W), dtype=_F32, device=table.device)
     _launch("fs_flat_bwd_blocks",
             (table, runs, live, g_out, g_logt, logt, carry, S, dtab),
-            (nb, T1, tiles_x, tile_size, B, C, int(blend_bf16)))
+            (nb, T1, tiles_x, tile_size, B, C, int(blend_bf16), tile_lo))
     return dtab
 
 
 def flat_composite_fwd_cuda(table, runs, blk_count, num_tiles, tiles_x,
-                            tile_size, B=128, blend_bf16=False):
+                            tile_size, B=128, blend_bf16=False, tile_lo=0):
     """K1 on the card: three launches; same returns as
     flat_composite_fwd_plain."""
     if runs.shape != (num_tiles + 2,):
         raise ValueError("runs must have num_tiles + 2 entries")
     delta, acc, _, sacc = fwd_blocks_cuda(table, runs, blk_count, tiles_x,
-                                          tile_size, B, blend_bf16)
+                                          tile_size, B, blend_bf16, tile_lo)
     carry, live, logt = fwd_scan_cuda(delta, runs, blk_count)
     out = fwd_combine_cuda(acc, carry, live, runs)
     _count("flat_composite_fwd")
@@ -474,12 +480,12 @@ def flat_composite_fwd_cuda(table, runs, blk_count, num_tiles, tiles_x,
 
 def flat_composite_bwd_cuda(table, runs, g_out, g_logt, logt, carry, acc,
                             live, tiles_x, tile_size, B=128,
-                            blend_bf16=False):
+                            blend_bf16=False, tile_lo=0):
     """K2 on the card: two launches; same returns as
     flat_composite_bwd_plain."""
     S = bwd_suffix_cuda(acc, carry, live, runs, g_out, blend_bf16)
     dtab = bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
-                           tiles_x, tile_size, B, blend_bf16)
+                           tiles_x, tile_size, B, blend_bf16, tile_lo)
     _count("flat_composite_bwd")
     return dtab
 
@@ -503,15 +509,15 @@ def flat_composite_bwd(table, *args, **kw):
 class _FlatComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, blk_tile, blk_count, num_tiles, tiles_x,
-                tile_size, B, blend_bf16):
+                tile_size, B, blend_bf16, tile_lo):
         runs = tile_runs(blk_tile, num_tiles)
         blk_count = blk_count.to(torch.int32).contiguous()
         table = table.contiguous()
         out, logt, carry, acc, live = flat_composite_fwd(
             table, runs, blk_count, num_tiles, tiles_x, tile_size, B,
-            blend_bf16)
+            blend_bf16, tile_lo)
         ctx.save_for_backward(table, runs, logt, carry, acc, live)
-        ctx.geom = (num_tiles, tiles_x, tile_size, B, blend_bf16)
+        ctx.geom = (num_tiles, tiles_x, tile_size, B, blend_bf16, tile_lo)
         out_t = out[:num_tiles].transpose(1, 2).contiguous()   # (T, P, C)
         alpha = 1.0 - torch.exp(logt[:num_tiles])
         return out_t, alpha
@@ -519,7 +525,7 @@ class _FlatComposite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_alpha):
         table, runs, logt, carry, acc, live = ctx.saved_tensors
-        num_tiles, tiles_x, tile_size, B, blend_bf16 = ctx.geom
+        num_tiles, tiles_x, tile_size, B, blend_bf16, tile_lo = ctx.geom
         C = table.shape[1] - 8
         P = tile_size * tile_size
         f32 = dict(dtype=torch.float32, device=table.device)
@@ -532,19 +538,22 @@ class _FlatComposite(torch.autograd.Function):
             g_logt[:num_tiles] = -g_alpha
         dtab = flat_composite_bwd(table, runs, g_out_t, g_logt, logt, carry,
                                   acc, live, tiles_x, tile_size, B,
-                                  blend_bf16)
-        return dtab, None, None, None, None, None, None, None
+                                  blend_bf16, tile_lo)
+        return dtab, None, None, None, None, None, None, None, None
 
 
 def flat_composite(table, blk_tile, blk_count, num_tiles, tiles_x,
-                   tile_size, B=128, blend_bf16=False):
+                   tile_size, B=128, blend_bf16=False, tile_lo=0):
     """Composite the flat segmented pair table.
 
     Same returns as pallas_flat.flat_composite: (out (num_tiles, P, C),
     alpha (num_tiles, P)); the gradient reaches the table only, with
-    |d mx|, |d my| in columns 6, 7. The reference's blk_first and blk_gtile
-    are not taken: tile runs follow from the non-decreasing blk_tile, and
-    each block's pixels are those of the tile that owns it. blend_bf16
-    takes the reference's bf16 blend products."""
+    |d mx|, |d my| in columns 6, 7. The reference's blk_first is not taken:
+    tile runs follow from the non-decreasing blk_tile (local tile ids).
+    The reference's blk_gtile is blk_tile + tile_lo: tile_lo is the global
+    id of local tile 0 (a tile-sharded mesh's shard me * T_loc), and each
+    block's pixel centres and row cull are those of its global tile.
+    blend_bf16 takes the reference's bf16 blend products."""
     return _FlatComposite.apply(table, blk_tile, blk_count, num_tiles,
-                                tiles_x, tile_size, B, bool(blend_bf16))
+                                tiles_x, tile_size, B, bool(blend_bf16),
+                                int(tile_lo))

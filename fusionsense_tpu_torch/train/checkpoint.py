@@ -104,10 +104,13 @@ def checkpoint_sh_degree(gaussians: GaussianState) -> int:
     return min(3, round(k ** 0.5) - 1)
 
 
-def save_trainer_state(trainer, path):
-    """Trainer.save: the full state and the host policy state."""
+def save_trainer_state(trainer, path, opt=None):
+    """Trainer.save: the full state and the host policy state. `opt`, when
+    given, is written in place of trainer.opt (parallel.ShardedTrainer
+    passes its moments gathered whole, so a Trainer reads its files)."""
     save_checkpoint(
-        path, trainer.gaussians, trainer.opt, trainer.stats, trainer.step,
+        path, trainer.gaussians, trainer.opt if opt is None else opt,
+        trainer.stats, trainer.step,
         cam_state=trainer.cam_state,
         extra={"tile_capacity": trainer.tile_capacity,
                "cover_tiles": trainer.cover_tiles,

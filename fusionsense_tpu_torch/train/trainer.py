@@ -704,6 +704,8 @@ class Trainer:
     changed. Set `checkpoint_dir` to save every cfg.train.steps_per_save
     steps."""
 
+    writer = True    # this process logs and writes (one rank of a mesh)
+
     def __init__(self, cfg: ExperimentConfig, camera: Camera, data: TrainData,
                  gaussians: GaussianState, scene_scale: float = 1.0,
                  extra_callbacks: Optional[list] = None,
@@ -738,6 +740,7 @@ class Trainer:
                             else cap_tiles)
         self._grid_tiles = (-(-camera.width // rc.tile_size)
                             * -(-camera.height // rc.tile_size))
+        self._budget_tiles = self._grid_tiles   # the tiles a budget serves
         self._nf_acc = None
         self._fused: dict = {}       # run_fused's FusedIntervals by key
         self._graph_pool = None      # one CUDA graph memory pool for them
@@ -789,7 +792,7 @@ class Trainer:
         tc = self.cfg.train
         if not self._is_flat or not tc.auto_tile_capacity or used <= 0:
             return
-        T = self._grid_tiles
+        T = self._budget_tiles
         target = -(-used * 5 // (4 * T) // 64) * 64
         target = max(64, min(target, tc.max_tile_capacity))
         if target > self.tile_capacity or target * 2 <= self.tile_capacity:
@@ -814,11 +817,26 @@ class Trainer:
         if want_w != cur_w:
             self.cover_tiles = want_w * want_w
 
-    def refine_boundary(self) -> Optional[dict]:
-        """The host side between chunks: the ADC refine when one is due at
-        this step, then the extra callbacks, then the recompact whenever the
-        alive set can have changed (slots past render_n are never
-        rasterized). Returns the refine's info (device tensors) or None."""
+    def _pick_capacity(self, n_alive: int) -> int:
+        return pick_capacity(n_alive, self.gaussians.capacity,
+                             self.max_capacity,
+                             minimum=min(1024, self.max_capacity))
+
+    def _rebucket(self, n_alive: int):
+        """At a log boundary: re-bucket the capacity (auto_capacity) and
+        re-pick the render prefix."""
+        if self.auto_capacity:
+            cap = self._pick_capacity(n_alive)
+            if cap != self.gaussians.capacity:
+                self.gaussians, self.opt, self.stats = resize_train_state(
+                    self.gaussians, self.opt, self.stats, new_capacity=cap)
+        if self.cfg.train.render_prefix:
+            self._recompact(n_alive)
+
+    def _mutate(self):
+        """The ADC refine when one is due at this step, then the extra
+        callbacks -> (the refine's info or None, whether the alive set can
+        have changed)."""
         cfg = self.cfg
         info = None
         changed = False
@@ -829,7 +847,15 @@ class Trainer:
             changed = True
         for cb in self.extra_callbacks:
             changed |= bool(cb(self))
-        if changed and cfg.train.render_prefix:
+        return info, changed
+
+    def refine_boundary(self) -> Optional[dict]:
+        """The host side between chunks: the ADC refine when one is due at
+        this step, then the extra callbacks, then the recompact whenever the
+        alive set can have changed (slots past render_n are never
+        rasterized). Returns the refine's info (device tensors) or None."""
+        info, changed = self._mutate()
+        if changed and self.cfg.train.render_prefix:
             self._recompact(int(self.gaussians.num_alive))
         return info
 
@@ -906,7 +932,6 @@ class Trainer:
         the K, pair-budget and cover-window policies from `metrics` (the
         last run_fused return; its final row). Appends the JAX trainer's
         history record and returns n_alive."""
-        cfg = self.cfg
         fetch = [self.gaussians.num_alive.reshape(1)]
         if metrics is not None:
             fetch += [metrics[k][-1].reshape(1) for k in
@@ -915,15 +940,7 @@ class Trainer:
                       metrics["trunc_by_win"][-1].reshape(-1)]
         vals = torch.cat([x.double() for x in fetch]).tolist()
         n_alive = int(vals[0])
-        if self.auto_capacity:
-            cap = pick_capacity(n_alive, self.gaussians.capacity,
-                                self.max_capacity,
-                                minimum=min(1024, self.max_capacity))
-            if cap != self.gaussians.capacity:
-                self.gaussians, self.opt, self.stats = resize_train_state(
-                    self.gaussians, self.opt, self.stats, new_capacity=cap)
-        if cfg.train.render_prefix:
-            self._recompact(n_alive)
+        self._rebucket(n_alive)
         if metrics is not None:
             pu, ovf, loss_h, psnr_h, nf = vals[1:6]
             self._maybe_bump_tile_capacity(int(ovf))
@@ -937,11 +954,36 @@ class Trainer:
             })
         return n_alive
 
+    def _run_chunk(self, n: int):
+        """n steps from self.step -> (the last step's metrics, the count of
+        non-finite steps in the chunk)."""
+        cfg_p = patched_cfg(self.cfg, self.tile_capacity, self.cover_tiles)
+        refresh = self.cfg.train.bin_refresh_steps
+        cache = (BinCache(self.num_views, refresh)
+                 if refresh > 0 and self._is_flat else None)
+        nonfinite = []
+        for _ in range(n):
+            (self.gaussians, self.opt, self.cam_state, self.stats,
+             metrics) = train_step(
+                self.gaussians, self.opt, self.cam_state, self.stats,
+                self.step, self.step % self.num_views, cfg=cfg_p,
+                camera=self.camera, data=self.data,
+                adam_groups=self._adam_groups, render_n=self.render_n,
+                cache=cache)
+            nonfinite.append(metrics["nonfinite"])
+            self.step += 1
+        return metrics, torch.stack(nonfinite).sum()
+
     def run(self, iterations: Optional[int] = None, log=print):
+        """Train to `iterations` (cfg.train.iterations by default) in chunks
+        that end at refine steps, with the refine boundary, debug grids,
+        checkpoints and the log-boundary policies between them. Only the
+        `writer` logs and dumps debug grids (parallel.ShardedTrainer runs
+        this loop on every rank)."""
         cfg = self.cfg
         total = iterations if iterations is not None else cfg.train.iterations
         adc = cfg.train.adc
-        refresh = cfg.train.bin_refresh_steps
+        log = log if self.writer else None
         t0 = time.time()
         while self.step < total:
             n = min(cfg.train.scan_chunk, total - self.step)
@@ -953,25 +995,11 @@ class Trainer:
             if self.step < adc.warmup:
                 next_refine = adc.warmup
             n = max(1, min(n, next_refine - self.step))
-            cfg_p = patched_cfg(cfg, self.tile_capacity, self.cover_tiles)
-            cache = (BinCache(self.num_views, refresh)
-                     if refresh > 0 and self._is_flat else None)
-            nonfinite = []
-            for _ in range(n):
-                (self.gaussians, self.opt, self.cam_state, self.stats,
-                 metrics) = train_step(
-                    self.gaussians, self.opt, self.cam_state, self.stats,
-                    self.step, self.step % self.num_views, cfg=cfg_p,
-                    camera=self.camera, data=self.data,
-                    adam_groups=self._adam_groups, render_n=self.render_n,
-                    cache=cache)
-                nonfinite.append(metrics["nonfinite"])
-                self.step += 1
-            nf_c = torch.stack(nonfinite).sum()
+            metrics, nf_c = self._run_chunk(n)
             self._nf_acc = nf_c if self._nf_acc is None else self._nf_acc + nf_c
 
             self.refine_boundary()
-            if (self.image_log_dir is not None
+            if (self.writer and self.image_log_dir is not None
                     and self.step % cfg.train.log_every == 0):
                 self._dump_debug_grid()
             if (self.checkpoint_dir is not None
@@ -1002,16 +1030,7 @@ class Trainer:
                     "pairs_used": int(pu_h),
                     "elapsed_s": time.time() - t0,
                 }
-                if self.auto_capacity:
-                    cap = pick_capacity(int(n_alive), self.gaussians.capacity,
-                                        self.max_capacity,
-                                        minimum=min(1024, self.max_capacity))
-                    if cap != self.gaussians.capacity:
-                        self.gaussians, self.opt, self.stats = (
-                            resize_train_state(self.gaussians, self.opt,
-                                               self.stats, new_capacity=cap))
-                if cfg.train.render_prefix:
-                    self._recompact(int(n_alive))
+                self._rebucket(int(n_alive))
                 self._maybe_bump_tile_capacity(int(ovf_h))
                 self._maybe_resize_pair_budget(int(pu_h))
                 self._maybe_adjust_cover_window(tbw_h)

@@ -133,15 +133,44 @@ def case(name):
 
 
 def torch_fwd_bwd(tab, blk_tile, blk_count, g_out, g_alpha, device="cpu",
-                  blend_bf16=False):
+                  blend_bf16=False, num_tiles=T, tile_lo=0):
     """Port's flat_composite forward + autograd backward on `device`."""
     t = torch.tensor(tab, device=device, requires_grad=True)
     ms = [torch.tensor(a, device=device) for a in (blk_tile, blk_count)]
-    out, alpha = FC.flat_composite(t, *ms, T, TILES_X, TS, B, blend_bf16)
+    out, alpha = FC.flat_composite(t, *ms, num_tiles, TILES_X, TS, B,
+                                   blend_bf16, tile_lo=tile_lo)
     torch.autograd.backward([out, alpha], [torch.tensor(g_out, device=device),
                                            torch.tensor(g_alpha, device=device)])
     return (out.detach().cpu().numpy(), alpha.detach().cpu().numpy(),
             t.grad.cpu().numpy())
+
+
+def shard_case(name, n, me):
+    """Shard `me` of `n` of a flat case, as a tile-sharded mesh lays it out:
+    the tiles padded to a multiple of n, T_loc = T_pad / n of them from
+    tile_lo = me * T_loc; the blocks of those tiles with local tile ids and
+    two dummy blocks at T_loc; the cotangents of those tiles (zero past T).
+    Returns (table, blk_tile, blk_first, blk_count, g_out, g_alpha, tile_lo,
+    T_loc, the global blocks' slice)."""
+    tab, bt, _, bc, g_out, g_alpha = case(name)
+    T_loc = -(-T // n)
+    lo = me * T_loc
+    own = np.nonzero((bt >= lo) & (bt < min(lo + T_loc, T)))[0]
+    blocks = slice(int(own[0]), int(own[-1]) + 1) if len(own) else slice(0, 0)
+    dummy = np.zeros((2 * B, W), np.float32)
+    dummy[:, 5] = -1e10
+    tab_l = np.concatenate([tab.reshape(-1, B, W)[blocks].reshape(-1, W),
+                            dummy])
+    bt_l = np.concatenate([bt[blocks] - lo, [T_loc, T_loc]]).astype(np.int32)
+    bc_l = np.concatenate([bc[blocks], [0, 0]]).astype(np.int32)
+    bf_l = np.concatenate(
+        [[1], (bt_l[1:] != bt_l[:-1]).astype(np.int32)]).astype(np.int32)
+    g_o = np.zeros((T_loc, P, C), np.float32)
+    g_a = np.zeros((T_loc, P), np.float32)
+    n_real = max(0, min(T_loc, T - lo))
+    g_o[:n_real] = g_out[lo:lo + n_real]
+    g_a[:n_real] = g_alpha[lo:lo + n_real]
+    return tab_l, bt_l, bf_l, bc_l, g_o, g_a, lo, T_loc, blocks
 
 
 # ---------------------------------------------------------- dense ------

@@ -18,15 +18,18 @@ from fusionsense_tpu_torch.render.flat_composite import (
 
 from flat_cases import (
     B, C, CASES, P, T, TILES_X, TS, assert_bf16_rounds, case, maps,
-    torch_fwd_bwd,
+    shard_case, torch_fwd_bwd,
 )
 
 
 def _jax_fwd_bwd(tab, blk_tile, blk_first, blk_count, g_out, g_alpha,
-                 blend_bf16=False):
-    args = [jnp.asarray(a) for a in (blk_tile, blk_first, blk_count, blk_tile)]
+                 blend_bf16=False, num_tiles=T, tile_lo=0):
+    """pallas_flat.flat_composite and its VJP; blk_gtile = blk_tile +
+    tile_lo, as the sharded step passes it."""
+    args = [jnp.asarray(a) for a in (blk_tile, blk_first, blk_count,
+                                     blk_tile + tile_lo)]
     f = lambda t: pallas_flat.flat_composite(  # noqa: E731
-        t, *args, T, TILES_X, TS, B, blend_bf16)
+        t, *args, num_tiles, TILES_X, TS, B, blend_bf16)
     (out, alpha), vjp = jax.vjp(f, jnp.asarray(tab))
     (dtab,) = vjp((jnp.asarray(g_out), jnp.asarray(g_alpha)))
     return np.asarray(out), np.asarray(alpha), np.asarray(dtab)
@@ -203,3 +206,62 @@ def test_tile_runs_cover_every_block():
     assert runs[0] == 0 and runs[-1] == len(bt)
     for t in range(T + 1):
         assert np.all(bt[runs[t]:runs[t + 1]] == t)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_at_tile_lo_matches_pallas_blk_gtile(name, n):
+    """A tile-sharded mesh's blocks: each shard's local layout at tile_lo =
+    me * T_loc against pallas_flat at blk_gtile = blk_tile + tile_lo; the
+    shards' outputs, concatenated, are the unsharded ones, their dtab rows
+    the unsharded rows of the same blocks, and fwd_blocks keeps the rows
+    the global tile's cull keeps (n = 4 pads 6 tiles to 8: the last shard
+    owns none)."""
+    tab, bt, _, bc, g_out, g_alpha = case(name)
+    out_f, alpha_f, dtab_f = torch_fwd_bwd(tab, bt, bc, g_out, g_alpha)
+    runs_f = FC.tile_runs(torch.tensor(bt), T)
+    _, _, kept_f, _ = FC.fwd_blocks_plain(torch.tensor(tab), runs_f,
+                                          torch.tensor(bc), TILES_X, TS, B)
+    outs, alphas = [], []
+    for me in range(n):
+        tab_l, bt_l, bf_l, bc_l, g_o, g_a, lo, t_loc, blocks = shard_case(
+            name, n, me)
+        out_t, alpha_t, dtab_t = torch_fwd_bwd(tab_l, bt_l, bc_l, g_o, g_a,
+                                               num_tiles=t_loc, tile_lo=lo)
+        out_j, alpha_j, dtab_j = _jax_fwd_bwd(tab_l, bt_l, bf_l, bc_l, g_o,
+                                              g_a, num_tiles=t_loc,
+                                              tile_lo=lo)
+        np.testing.assert_allclose(out_t, out_j, atol=1e-5)
+        np.testing.assert_allclose(alpha_t, alpha_j, atol=1e-5)
+        np.testing.assert_allclose(dtab_t, dtab_j, atol=1e-5, rtol=1e-4)
+        rows = slice(blocks.start * B, blocks.stop * B)
+        np.testing.assert_array_equal(dtab_t[:rows.stop - rows.start],
+                                      dtab_f[rows])
+        runs = FC.tile_runs(torch.tensor(bt_l), t_loc)
+        _, _, kept, _ = FC.fwd_blocks_plain(torch.tensor(tab_l), runs,
+                                            torch.tensor(bc_l), TILES_X, TS,
+                                            B, tile_lo=lo)
+        np.testing.assert_array_equal(
+            kept.numpy()[:blocks.stop - blocks.start], kept_f.numpy()[blocks])
+        outs.append(out_t)
+        alphas.append(alpha_t)
+    np.testing.assert_array_equal(np.concatenate(outs)[:T], out_f)
+    np.testing.assert_array_equal(np.concatenate(alphas)[:T], alpha_f)
+    assert np.all(np.concatenate(outs)[T:] == 0)
+
+
+def test_tile_lo_moves_pixels_and_cull():
+    """tile_lo is not a no-op: the same local layout at another global tile
+    composites other pixels; and a faint row with a narrow footprint at
+    the centre of global tile 0 is culled at tile 0 (its quadratic form
+    stays under the bound there) but not when its block is global tile 4."""
+    tab_l, bt_l, _, bc_l, g_o, g_a, lo, t_loc, _ = shard_case("mixed", 2, 1)
+    at = torch_fwd_bwd(tab_l, bt_l, bc_l, g_o, g_a, num_tiles=t_loc,
+                       tile_lo=lo)
+    off = torch_fwd_bwd(tab_l, bt_l, bc_l, g_o, g_a, num_tiles=t_loc)
+    assert np.abs(at[0] - off[0]).max() > 1e-2
+    row = torch.tensor([[8.0, 8.0, 1e3, 0.0, 1e3, -20.0, 0, 0] + [0.5] * C])
+    local0 = torch.zeros(1, dtype=torch.long)
+    assert FC.cull_rows(row.repeat(B, 1), local0, TILES_X, TS, B).all()
+    assert not FC.cull_rows(row.repeat(B, 1), local0, TILES_X, TS, B,
+                            tile_lo=4).any()

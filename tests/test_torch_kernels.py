@@ -11,7 +11,7 @@ import torch
 
 from flat_cases import (
     B, C, CASES, DENSE_CASES, DENSE_K, P, T, TILES_X, TS, case, dense_case,
-    torch_dense_fwd_bwd, torch_fwd_bwd,
+    shard_case, torch_dense_fwd_bwd, torch_fwd_bwd,
 )
 from fusionsense_tpu_torch.kernels import build
 from fusionsense_tpu_torch.render import composite2 as C2
@@ -68,6 +68,63 @@ def test_kernels_match_plain_on_card(card, name):
     dtab, dtab_want = finite_part(got[2], want[2])
     np.testing.assert_allclose(dtab, dtab_want, atol=1e-4, rtol=0)
     assert_columns_close(dtab, dtab_want, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernels_at_tile_lo_match_plain_on_card(card, name, n):
+    """K1/K2 on a tile-sharded mesh's blocks (tile_lo = me * T_loc) against
+    the plain versions at K1/K2's limits above; the shards' outputs,
+    concatenated, against the unsharded kernel's."""
+    full = torch_fwd_bwd(*(case(name)[i] for i in (0, 1, 3, 4, 5)),
+                         device=card)
+    outs = []
+    for me in range(n):
+        tab, bt, _, bc, g_o, g_a, lo, t_loc, _ = shard_case(name, n, me)
+        args = (tab, bt, bc, g_o, g_a)
+        kw = dict(num_tiles=t_loc, tile_lo=lo)
+        FC.reset_launch_counts()
+        got = torch_fwd_bwd(*args, device=card, **kw)
+        assert FC.LAUNCHES["flat_composite_fwd"] == 1
+        assert FC.LAUNCHES["flat_composite_fwd_plain"] == 0
+        want = torch_fwd_bwd(*args, device="cpu", **kw)
+        np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got[1], want[1], atol=1e-6, rtol=0)
+        dtab, dtab_want = finite_part(got[2], want[2])
+        np.testing.assert_allclose(dtab, dtab_want, atol=1e-4, rtol=0)
+        assert_columns_close(dtab, dtab_want, 1e-4)
+        outs.append(got[0])
+    np.testing.assert_allclose(np.concatenate(outs)[:T], full[0], atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("name", sorted(DENSE_CASES))
+def test_dense_kernels_at_offset_tile_ids_match_plain_on_card(card, name, n):
+    """K3/K4 on a tile-sharded mesh's row blocks, each at its global tile
+    ids (the sharded step's me * T_loc + arange(T_loc)), against the plain
+    versions; the blocks' outputs, concatenated, against the whole
+    table's."""
+    tab, counts, tile_ids, g_out, g_alpha = dense_case(name)
+    full = torch_dense_fwd_bwd(tab, counts, tile_ids, g_out, g_alpha,
+                               device=card)
+    t_loc = -(-T // n)
+    outs = []
+    for me in range(n):
+        rows = slice(me * t_loc, min((me + 1) * t_loc, T))
+        args = (tab[rows], counts[rows], tile_ids[rows], g_out[rows],
+                g_alpha[rows])
+        got = torch_dense_fwd_bwd(*args, device=card)
+        want = torch_dense_fwd_bwd(*args, device="cpu")
+        np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got[1], want[1], atol=1e-6, rtol=0)
+        dtab, dtab_want = finite_part(got[2], want[2])
+        np.testing.assert_allclose(dtab, dtab_want, atol=1e-4, rtol=0)
+        outs.append(got[0])
+    np.testing.assert_allclose(np.concatenate(outs), full[0], atol=1e-5,
+                               rtol=0)
 
 
 @pytest.mark.gpu

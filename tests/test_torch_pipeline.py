@@ -501,12 +501,29 @@ def test_cli_parser_matches_jax():
     assert args.mesh == ["tsdf", "sugar-coarse"] and args.backend == "jax"
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "--device-mesh", "data=2"], "A18")])
-def test_cli_refuses_unported_options_before_training(tmp_path, flags, item):
-    """Named by their ROADMAP item, before the scene is even read."""
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flags,env,error,match", [
+    # two ranks asked for, no launcher: says how to launch
+    (["--mesh", "--device-mesh", "data=2"], {}, RuntimeError, "torchrun"),
+    # a launcher's world of one rank, a mesh of four
+    (["--mesh", "--device-mesh", "data=2,tile=2"],
+     {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}, ValueError,
+     "a mesh of 4 ranks in a world of 1"),
+    # an axis the mesh does not have
+    (["--mesh", "--device-mesh", "data=2,pipe=2"], {}, ValueError,
+     "unknown axes")])
+def test_cli_refuses_unported_options_before_training(tmp_path, monkeypatch,
+                                                      flags, env, error,
+                                                      match):
+    """--device-mesh is ported (parallel/): a mesh that cannot run on the
+    ranks there are raises, before the scene is even read (the data
+    directory does not exist) and before any process group starts."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(error, match=match):
         CLIT.main(["--data", str(tmp_path / "missing"), *flags], device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_viewer_serves_the_trained_model(blob, tmp_path, monkeypatch):
