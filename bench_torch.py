@@ -2,6 +2,7 @@
 
     python bench_torch.py                     # on the card (the default)
     python bench_torch.py --device cpu --smoke   # every phase at a toy size
+    python bench_torch.py --seed 2               # the trainer's seed
 
 Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": "iters/sec", "vs_baseline": N,
@@ -17,7 +18,11 @@ own code from the same seeds:
     prefix, pair budget and cover window stop changing (and past the first
     two refines);
   * the quality horizon: run_fused + sync_policies in 500-step segments to
-    step 3,000, whose last logged PSNR is `psnr_3000`;
+    step 3,000. `psnr_3000` is the last logged PSNR there: one training
+    view's PSNR at one step (bench.py's field, kept for comparison).
+    `psnr_3000_views` is the mean PSNR of all 9 views rendered from the
+    state at step 3,000, and `alive_3000` its population: the numbers the
+    JAX package's float32 seed envelope bounds (PERF.md section 2);
   * the measurement: run_fused over two windows, 500 and 2,000 steps, after
     one untimed segment (it captures the CUDA graphs); step_ms is the slope
     (t_2000 - t_500) / 1,500, which cancels the fixed cost of a window;
@@ -226,7 +231,7 @@ def profile_interval(tr):
             "profiled_steps": steps}, ms
 
 
-def scale_row(S, rcfg, cams, data, dev):
+def scale_row(S, rcfg, cams, data, dev, seed=0):
     """Throughput at 100,000+ alive Gaussians (bench.py _scale_bench): the
     scene seeded densely, a low cull threshold, refines inside the windows."""
     import torch
@@ -235,7 +240,8 @@ def scale_row(S, rcfg, cams, data, dev):
 
     init = _init(S["scale_seed"], 2, 3, S["scale_capacity"], dev)
     cfg = _config(S, rcfg, S["scale_capacity"], max_tile_capacity=4096,
-                  adc=dict(cull_alpha_thresh=1e-3, densify_grad_thresh=0.02))
+                  adc=dict(cull_alpha_thresh=1e-3, densify_grad_thresh=0.02),
+                  seed=seed)
     tr = Trainer(cfg, cams, data, init, device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -271,6 +277,8 @@ def main(argv=None) -> int:
                     help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--smoke", action="store_true",
                     help="every phase at a toy size (numbers meaningless)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="TrainConfig.seed: the split normals' generators")
     args = ap.parse_args(argv)
     S = SMOKE if args.smoke else FULL
 
@@ -278,6 +286,7 @@ def main(argv=None) -> int:
     import torch
 
     from fusionsense_tpu_torch.device import resolve_device
+    from fusionsense_tpu_torch.eval.evaluator import view_psnrs
     from fusionsense_tpu_torch.train.trainer import Trainer
 
     dev = resolve_device(args.device)
@@ -290,7 +299,7 @@ def main(argv=None) -> int:
         build_all()
     rcfg, cams, data = build_scene(S, dev)
     init = _init(S["n_seed"] // 2, 1, 0, S["capacity"], dev)
-    cfg = _config(S, rcfg, S["capacity"])
+    cfg = _config(S, rcfg, S["capacity"], seed=args.seed)
     tr = Trainer(cfg, cams, data, init, device=dev)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -302,8 +311,11 @@ def main(argv=None) -> int:
         k = max(1, min(S["dispatch"], S["horizon"] - tr.step) // ivl)
         tr.sync_policies(tr.run_fused(k))
     psnr_3000 = tr.history[-1]["psnr"]
+    alive_3000 = tr.history[-1]["num_gaussians"]
+    psnr_3000_views = sum(view_psnrs(tr.gaussians, cams, data.images,
+                                     rcfg)) / S["n_views"]
     _log(f"quality horizon: step {tr.step} psnr {psnr_3000:.2f} "
-         f"n {tr.history[-1]['num_gaussians']}")
+         f"({S['n_views']} views {psnr_3000_views:.3f}) n {alive_3000}")
 
     pre_state = _policy_state(tr)
     n_int = S["dispatch"] // ivl
@@ -341,7 +353,9 @@ def main(argv=None) -> int:
         "render_n": tr.render_n, "tile_capacity": tr.tile_capacity,
         "cover_tiles": tr.cover_tiles,
         "measure_state_stable": pre_state == post_state,
+        "seed": args.seed,
         "psnr_3000": psnr_3000,
+        "psnr_3000_views": psnr_3000_views, "alive_3000": alive_3000,
         "psnr_last": tr.history[-1]["psnr"],
         "tile_overflow_last": tr.history[-1].get("tile_overflow"),
         "peak_memory_gb": peak_gb,
@@ -349,7 +363,7 @@ def main(argv=None) -> int:
     }
     _log(f"main row: {step_ms:.3f} ms/step, psnr_3000 {psnr_3000:.2f}")
     del tr
-    extra["scale"] = scale_row(S, rcfg, cams, data, dev)
+    extra["scale"] = scale_row(S, rcfg, cams, data, dev, args.seed)
     print(json.dumps({
         "metric": "train_iters_per_sec_9view_640x480_dn_splatter",
         "value": iters_per_sec, "unit": "iters/sec",

@@ -169,11 +169,20 @@ Phases (any failure exits non-zero and prints no result):
     Trainer for 10 steps; fs-train --device-mesh through torchrun (8
     ranks, flat, 200 steps, an empty --mesh) on a copy of phase 11's
     capture, rank 0's artifacts read back and its logged PSNR rising;
-20. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+20. long-run parity (tests/torch_long_parity.py's scene, built with the
+    port: bench.py's cut to 160x120, 6,000 GT / 3,000 init points, tile
+    16, capacity 2^14): run_fused of one 100-step interval + sync_policies
+    to step 4,000 for seeds 0-4 through CUDA graphs of K1/K2's step; at
+    every 100-step boundary the seeds' mean alive count and 9-view mean
+    PSNR inside the JAX package's float32 seed envelope read from
+    tests/torch_long_parity_jax.json, one line per boundary; K1/K2 at
+    every step, no plain twin;
+21. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
     fusionsense path's post-refine shape; launches those of every path
     that runs the kernel, graph replays, the mesh renders, fs-render's
-    renders, the viewer phase's steps and the sharded ranks' steps
-    included; errors the largest of every check; the blend_bf16 branch's
+    renders, the viewer phase's steps, the sharded ranks' steps and the
+    long-parity seeds' included; errors the largest of every check; the
+    blend_bf16 branch's
     times and error beside the float32 ones), the card line, and last the
     result line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -321,6 +330,21 @@ TOL_SHARD, TOL_SHARD_M = dict(atol=4e-4, rtol=1e-3), dict(atol=4e-4, rtol=2e-3)
 TOL_ZERO1 = dict(atol=3e-5, rtol=1e-3)
 TOL_SHARD_SCALE, TOL_ZERO1_SCALE = 1e-2, 1e-3
 SHARD_CLI_ITERS, SHARD_CLI_WARMUP, SHARD_WAIT = 200, 100, 900
+# the long-parity phase: tests/torch_long_parity.py's scene, built with the
+# port alone (bench.py's cut to LONG_W x LONG_H, focal 550 * LONG_W / 640,
+# LONG_GT / LONG_INIT points, tile 16, capacity 2^14; ADCConfig(), bin
+# refresh 18, flat), trained by run_fused of one 100-step interval and
+# sync_policies to LONG_STEPS for each of LONG_SEEDS; at every boundary the
+# seeds' mean alive count and 9-view mean PSNR lie within the JAX seeds'
+# envelope read from LONG_REF (float32 CPU runs of the JAX package): their
+# mean +- max(2 x their sample standard deviation, LONG_ALIVE_FLOOR of the
+# alive mean / LONG_PSNR_FLOOR dB)
+LONG_W, LONG_H, LONG_GT, LONG_INIT = 160, 120, 6_000, 3_000
+LONG_TILE, LONG_CAPACITY, LONG_STEPS, LONG_EVERY = 16, 1 << 14, 4000, 100
+LONG_SEEDS = range(5)
+LONG_ALIVE_FLOOR, LONG_PSNR_FLOOR = 0.02, 0.1
+LONG_REF = (Path(__file__).resolve().parent / "tests"
+            / "torch_long_parity_jax.json")
 
 
 def log(msg):
@@ -356,8 +380,10 @@ def bound(ops, nbytes):
                                         else "bytes")
 
 
-def build_scene(torch, dev):
-    """bench.py's scene and trainer configuration, from the port's code."""
+def build_scene(torch, dev, width=WIDTH, height=HEIGHT, n_gt=N_GT,
+                n_init=N_INIT, capacity=CAPACITY, tile=32, focal=FOCAL):
+    """bench.py's scene and trainer configuration, from the port's code
+    (at the bench's size unless cut by the arguments)."""
     import numpy as np
 
     from fusionsense_tpu_torch.config import (
@@ -374,16 +400,16 @@ def build_scene(torch, dev):
     )
     from fusionsense_tpu_torch.train.trainer import TrainData
 
-    rcfg = RasterizeConfig(tile_size=32, tile_capacity=512,
+    rcfg = RasterizeConfig(tile_size=tile, tile_capacity=512,
                            max_tiles_per_gaussian=9, tile_chunk=100,
                            sh_degree=3, backend="flat")
-    cams = ring_cameras(n_views=N_VIEWS, width=WIDTH, height_px=HEIGHT,
-                        focal=FOCAL, device=dev)
-    pts, rgb, normals = sphere_points(n=N_GT, radius=0.5, device=dev)
-    gt = init_from_points(pts, rgb, capacity=CAPACITY, sh_degree=3,
+    cams = ring_cameras(n_views=N_VIEWS, width=width, height_px=height,
+                        focal=focal, device=dev)
+    pts, rgb, normals = sphere_points(n=n_gt, radius=0.5, device=dev)
+    gt = init_from_points(pts, rgb, capacity=capacity, sh_degree=3,
                           seed_normals=normals, init_opacity=0.95)
     # the GT model's dead slots have opacity 0: render its alive prefix
-    m, q, s, o, c = (x[:N_GT] for x in activated(gt))
+    m, q, s, o, c = (x[:n_gt] for x in activated(gt))
     imgs, deps, nms = [], [], []
     budget = 2048
     with torch.no_grad():
@@ -404,14 +430,14 @@ def build_scene(torch, dev):
             nms.append(n)
     data = TrainData(images=torch.stack(imgs), sensor_depths=torch.stack(deps),
                      normals=torch.stack(nms))
-    pts2, rgb2, n2 = sphere_points(n=N_INIT, radius=0.5, seed=1, device=dev)
+    pts2, rgb2, n2 = sphere_points(n=n_init, radius=0.5, seed=1, device=dev)
     rng = np.random.RandomState(0)
     noise = 0.02 * rng.randn(*pts2.shape).astype(np.float32)
     init = init_from_points(pts2 + torch.as_tensor(noise, device=dev),
-                            torch.full_like(rgb2, 0.5), capacity=CAPACITY,
+                            torch.full_like(rgb2, 0.5), capacity=capacity,
                             sh_degree=3, seed_normals=n2)
     cfg = ExperimentConfig(
-        model=ModelConfig(sh_degree=3, rasterize=rcfg, capacity=CAPACITY,
+        model=ModelConfig(sh_degree=3, rasterize=rcfg, capacity=capacity,
                           binary_opacities=False),
         train=TrainConfig(iterations=15_000, scan_chunk=50,
                           bin_refresh_steps=2 * N_VIEWS, adc=ADCConfig()),
@@ -3299,6 +3325,108 @@ def sharded_path(torch, dev, card, cams, data, init, cfg):
     return errs, launches
 
 
+def long_envelope(ref):
+    """{step: {key: (lo, hi)}} for num_gaussians and psnr_views from the
+    JAX seeds' trajectories of LONG_REF."""
+    import numpy as np
+
+    env = {}
+    for b in ref["boundaries"]:
+        e = {}
+        for k, floor in (("num_gaussians", None),
+                         ("psnr_views", LONG_PSNR_FLOOR)):
+            v = np.asarray(b[k], np.float64)
+            mean = float(v.mean())
+            sd = float(v.std(ddof=1)) if v.size > 1 else 0.0
+            half = max(2 * sd, LONG_ALIVE_FLOOR * mean if floor is None
+                       else floor)
+            e[k] = (mean - half, mean + half)
+        env[b["step"]] = e
+    return env
+
+
+def long_parity_path(torch, dev, counters, card):
+    """The long-parity phase (20): the CPU harness's scene on the card,
+    run_fused with CUDA graphs of K1/K2's step to LONG_STEPS for each seed,
+    the seed-means at every LONG_EVERY boundary held to the JAX envelope.
+    The launch counters are zeroed just before and read just after; K1/K2
+    must launch at every step, their plain twins never. Returns the
+    launches."""
+    from fusionsense_tpu_torch.eval.evaluator import view_psnrs
+    from fusionsense_tpu_torch.train import graphs as G
+    from fusionsense_tpu_torch.train.trainer import Trainer
+
+    env = long_envelope(json.loads(LONG_REF.read_text()))
+    t_start = time.perf_counter()
+    cams, data, init, cfg, gt_budget = build_scene(
+        torch, dev, width=LONG_W, height=LONG_H, n_gt=LONG_GT,
+        n_init=LONG_INIT, capacity=LONG_CAPACITY, tile=LONG_TILE,
+        focal=FOCAL * LONG_W / 640)
+    ivl = cfg.train.adc.refine_every
+    for c in counters:
+        c.reset_launch_counts()
+    G.reset_launch_counts()
+    runs, nonfinite, rate = {}, 0, []
+    for seed in LONG_SEEDS:
+        cfg_s = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, seed=seed))
+        tr = Trainer(cfg_s, cams, data, init.replace(
+            **{k: v.clone() for k, v in init.fields().items()}), device=dev)
+        rows, train_s = {}, 0.0
+        while tr.step < LONG_STEPS:
+            t0 = time.perf_counter()
+            tr.sync_policies(tr.run_fused(LONG_EVERY // ivl))
+            train_s += time.perf_counter() - t0
+            psnrs = view_psnrs(tr.gaussians, cams, data.images,
+                               cfg.model.rasterize)
+            rows[tr.step] = {"num_gaussians": tr.history[-1]["num_gaussians"],
+                             "psnr_views": sum(psnrs) / len(psnrs)}
+        nonfinite += sum(r["nonfinite_steps"] for r in tr.history)
+        rate.append(train_s * 1e3 / LONG_STEPS)
+        runs[seed] = rows
+        log(f"long parity seed {seed}: {tr.step} steps, "
+            f"{rate[-1]:.3f} ms/step with the policy syncs; alive "
+            f"{rows[tr.step]['num_gaussians']}, 9-view PSNR "
+            f"{rows[tr.step]['psnr_views']:.4f}; graphs {tr.graph_stats()}")
+        del tr
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    for k, v in G.REPLAYED.items():
+        launches[k] += v
+    misses = []
+    for step in sorted(env):
+        have = [r[step] for r in runs.values() if step in r]
+        if not have:
+            continue
+        parts, miss = [], []
+        for k, (lo, hi) in env[step].items():
+            m = sum(h[k] for h in have) / len(have)
+            parts.append(f"{k} {m:.4f} in [{lo:.4f}, {hi:.4f}]")
+            if not lo <= m <= hi:
+                miss.append((step, k, m, lo, hi))
+        misses += miss
+        log(f"long parity step {step}: seed-mean " + "; ".join(parts)
+            + ("  MISS" if miss else ""))
+    log(f"long parity: {len(LONG_SEEDS)} seeds x {LONG_STEPS} steps in "
+        f"{time.perf_counter() - t_start:.1f} s ({card}; GT budget "
+        f"{gt_budget}); ms/step per seed {[round(r, 3) for r in rate]}; "
+        f"launches {launches}")
+    if nonfinite:
+        raise RuntimeError(f"long parity: {nonfinite} non-finite steps")
+    if misses:
+        raise RuntimeError(f"long parity: outside the JAX envelope at "
+                           f"{misses}")
+    steps = LONG_STEPS * len(LONG_SEEDS)
+    names = ("flat_composite_fwd", "flat_composite_bwd")
+    if any(launches[k] < steps for k in names):
+        raise RuntimeError(f"long parity: the path missed a kernel: "
+                           f"{launches}")
+    if any(launches[f"{k}_plain"] for k in names):
+        raise RuntimeError(f"long parity: the path ran a plain version: "
+                           f"{launches}")
+    return launches
+
+
 def main():
     import torch
 
@@ -3453,7 +3581,13 @@ def main():
         k["launches"] += shard_launches[key]
         k["max_abs_err"] = max(k["max_abs_err"], shard_errs[key])
 
-    # 20. results
+    # 20. the long-parity phase: the CPU harness's scene on the card, five
+    # seeds of run_fused to step 4,000 held to the JAX float32 envelope
+    long_launches = long_parity_path(torch, dev, (FC, C2), card)
+    for k, key in zip(kernels, ("fwd", "bwd")):
+        k["launches"] += long_launches[f"flat_composite_{key}"]
+
+    # 21. results
     print(json.dumps({"kernels": kernels + fs_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

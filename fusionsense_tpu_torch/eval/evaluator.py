@@ -65,6 +65,17 @@ def make_render_fn(cfg: RasterizeConfig, camera: Camera, cam_deltas=None,
     return render_retry
 
 
+def view_psnrs(gaussians: GaussianState, camera: Camera, images: torch.Tensor,
+               cfg: RasterizeConfig) -> list[float]:
+    """The PSNR of every view of `images` (V, H, W, 3), each rendered from
+    `gaussians` through make_render_fn (the flat pair budget grows on
+    overflow); their mean is the quality metric of bench_torch.py and of
+    the long-run parity checks."""
+    render = make_render_fn(cfg, camera)
+    return [float(M.psnr(render(gaussians, i).rgb, images[i]))
+            for i in range(images.shape[0])]
+
+
 def _sync(dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

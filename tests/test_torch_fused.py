@@ -289,11 +289,13 @@ def test_device_input_step_matches_eager_and_jax(scene, step):
 # ------------------------------------------------------- bench_torch.py --
 
 def test_bench_torch_smoke_on_cpu(tmp_path):
-    """bench_torch.py --device cpu --smoke runs every phase at a toy size
-    and prints one JSON line with the bench's keys."""
+    """bench_torch.py --device cpu --smoke --seed 1 runs every phase at a
+    toy size and prints one JSON line with the bench's keys, the seed and
+    the quality horizon's 9-view PSNR and population."""
     proc = subprocess.run(
         [sys.executable, str(ROOT / "bench_torch.py"), "--device", "cpu",
-         "--smoke"], capture_output=True, text=True, timeout=300, cwd=tmp_path,
+         "--smoke", "--seed", "1"], capture_output=True, text=True,
+        timeout=300, cwd=tmp_path,
         env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
@@ -305,10 +307,12 @@ def test_bench_torch_smoke_on_cpu(tmp_path):
     for k in ("psnr_3000", "step_ms", "t_window_500_s", "t_window_2000_s",
               "peak_memory_gb", "graphs", "capture_s", "device_busy_share",
               "card", "roofline_frac", "num_gaussians", "scale",
-              "measure_state_stable"):
+              "measure_state_stable", "psnr_3000_views", "alive_3000"):
         assert k in extra, k
     assert extra["platform"] == "cpu" and extra["graphs"] == 0
     assert np.isfinite(extra["psnr_3000"])
+    assert np.isfinite(extra["psnr_3000_views"]) and extra["alive_3000"] > 0
+    assert extra["seed"] == 1
     assert extra["scale"]["num_gaussians"] > 0
 
 
