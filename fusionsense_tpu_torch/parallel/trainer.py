@@ -91,7 +91,7 @@ class ShardedTrainer:
         self.image_log_dir = None
         self._debug_render = None
         self._adam_groups = adam_groups
-        self._nf_acc = None
+        self._counts = None
         z6 = torch.zeros((self.num_views, 6), device=self.device)
         self.cam_state = (z6, init_adam({"cam_delta": z6}))
         rc = cfg.model.rasterize
@@ -116,6 +116,9 @@ class ShardedTrainer:
     _maybe_resize_pair_budget = Trainer._maybe_resize_pair_budget
     _dump_debug_grid = Trainer._dump_debug_grid
     _mutate = Trainer._mutate
+    _log_boundary = Trainer._log_boundary
+    # the sharded step does not sum the pairs dropped or cut over its shards
+    COUNTS = ("nonfinite_steps",)
 
     def _train_chunk(self):
         return make_sharded_train_chunk(
@@ -218,7 +221,7 @@ class ShardedTrainer:
             self.step, self._cam_indices(n))
         self.step += n
         return ({k: v[-1] for k, v in metrics.items()},
-                metrics["nonfinite"].sum())
+                metrics["nonfinite"].sum().reshape(1))
 
     def _pick_capacity(self, n_alive: int) -> int:
         cap = Trainer._pick_capacity(self, n_alive)

@@ -38,6 +38,7 @@ from fusionsense_tpu_torch.render.flat_composite import flat_composite
 from fusionsense_tpu_torch.render.project import (
     alpha_coefficients, project_gaussians,
 )
+from fusionsense_tpu_torch.utils.profiling import span
 
 BACKENDS = ("jax", "pallas", "flat")
 
@@ -170,10 +171,11 @@ class _Prepared(NamedTuple):
 def _prepare(means, quats, scales, opacities, colors, camera, cfg, normals,
              mean2d_tap) -> _Prepared:
     """Projection and the per-Gaussian blended channels, for every backend."""
-    proj = project_gaussians(means, quats, scales, opacities, camera,
-                             near=cfg.near, far=cfg.far, eps2d=cfg.eps2d,
-                             antialiased=cfg.antialiased,
-                             radius_clip=cfg.radius_clip)
+    with span("fs.project"):
+        proj = project_gaussians(means, quats, scales, opacities, camera,
+                                 near=cfg.near, far=cfg.far, eps2d=cfg.eps2d,
+                                 antialiased=cfg.antialiased,
+                                 radius_clip=cfg.radius_clip)
     mean2d = proj.mean2d
     if mean2d_tap is not None:
         mean2d = mean2d + mean2d_tap
@@ -241,13 +243,15 @@ def flat_table(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
     if bins is not None:
         fb = bins
     else:
-        fb = flat_bin_gaussians(
-            proj.mean2d.detach(), proj.radius.detach(), proj.depth.detach(),
-            width=camera.width, height=camera.height, tile_size=cfg.tile_size,
-            pair_budget=PB, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
-            block=B, compute_landing=cfg.flat_grad_transpose != "scatter",
-            expand_budget=auto_expand_budget(
-                PB, N, cfg.max_tiles_per_gaussian, B))
+        with span("fs.bin"):
+            fb = flat_bin_gaussians(
+                proj.mean2d.detach(), proj.radius.detach(),
+                proj.depth.detach(), width=camera.width, height=camera.height,
+                tile_size=cfg.tile_size, pair_budget=PB,
+                max_tiles_per_gaussian=cfg.max_tiles_per_gaussian, block=B,
+                compute_landing=cfg.flat_grad_transpose != "scatter",
+                expand_budget=auto_expand_budget(
+                    PB, N, cfg.max_tiles_per_gaussian, B))
     table_n, dead = _gaussian_table(pre, absgrad_tap)
     if cfg.flat_grad_transpose == "scatter" or fb.landing is None:
         sel = _FlatSelectScatter.apply(table_n, fb.gauss_ids, fb.valid)
@@ -269,11 +273,12 @@ class DenseTable(NamedTuple):
 
 
 def _dense_bins(proj, camera: Camera, cfg: RasterizeConfig):
-    return bin_gaussians(
-        proj.mean2d.detach(), proj.radius.detach(), proj.depth.detach(),
-        width=camera.width, height=camera.height, tile_size=cfg.tile_size,
-        tile_capacity=cfg.tile_capacity,
-        max_tiles_per_gaussian=cfg.max_tiles_per_gaussian)
+    with span("fs.bin"):
+        return bin_gaussians(
+            proj.mean2d.detach(), proj.radius.detach(), proj.depth.detach(),
+            width=camera.width, height=camera.height,
+            tile_size=cfg.tile_size, tile_capacity=cfg.tile_capacity,
+            max_tiles_per_gaussian=cfg.max_tiles_per_gaussian)
 
 
 def dense_table(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
@@ -312,8 +317,9 @@ def _xla_composite(means, quats, scales, opacities, colors, camera, cfg,
     tile_coeff = torch.where(m, coeff[idx], dead)
     feats = pixel_features(TileGrid(camera.width, camera.height, cfg.tile_size),
                            m.device)
-    out, alpha = composite_tiles(feats, tile_coeff, tile_chan,
-                                 tile_chunk=cfg.tile_chunk)
+    with span("fs.composite"):
+        out, alpha = composite_tiles(feats, tile_coeff, tile_chan,
+                                     tile_chunk=cfg.tile_chunk)
     return out, alpha, tb, proj
 
 
@@ -354,19 +360,21 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
         ft = flat_table(means, quats, scales, opacities, colors, camera, cfg,
                         absgrad_tap=absgrad_tap, bins=bins, **kw)
         fb, proj = ft.bins, ft.proj
-        out_tiled, alpha_tiled = flat_composite(
-            ft.table, fb.blk_tile, fb.blk_count, grid.num_tiles, grid.tiles_x,
-            cfg.tile_size, cfg.pallas_chunk, cfg.blend_bf16)
+        with span("fs.composite"):
+            out_tiled, alpha_tiled = flat_composite(
+                ft.table, fb.blk_tile, fb.blk_count, grid.num_tiles,
+                grid.tiles_x, cfg.tile_size, cfg.pallas_chunk, cfg.blend_bf16)
         out_tiled = out_tiled[..., :ft.nchan]
         pairs_used = fb.used
     elif cfg.backend == "pallas":
         dt = dense_table(means, quats, scales, opacities, colors, camera, cfg,
                          absgrad_tap=absgrad_tap, **kw)
         fb, proj = dt.bins, dt.proj
-        out_tiled, alpha_tiled = composite2(
-            dt.table, dt.counts,
-            torch.arange(grid.num_tiles, dtype=torch.int32, device=dev),
-            grid.tiles_x, cfg.tile_size, cfg.pallas_chunk, cfg.blend_bf16)
+        with span("fs.composite"):
+            out_tiled, alpha_tiled = composite2(
+                dt.table, dt.counts,
+                torch.arange(grid.num_tiles, dtype=torch.int32, device=dev),
+                grid.tiles_x, cfg.tile_size, cfg.pallas_chunk, cfg.blend_bf16)
         out_tiled = out_tiled[..., :dt.nchan]
         pairs_used = i0
     else:

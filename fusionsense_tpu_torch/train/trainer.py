@@ -61,6 +61,7 @@ from fusionsense_tpu_torch.train.optim import (
 from fusionsense_tpu_torch.train.sdf_loss import (
     sample_points_in_gaussians, sdf_loss,
 )
+from fusionsense_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -197,9 +198,11 @@ def compute_losses(gaussians: GaussianState, camera: Camera, data: TrainData,
         background=device_vector(mc.background, means.device),
         mean2d_tap=tap, absgrad_tap=absgrad_tap, bins=bins,
         device=means.device)
-    return loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step,
-                      cfg, alive_r, render_n=render_n,
-                      generator=None if inputs is None else inputs.generator)
+    with span("fs.losses"):
+        return loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx,
+                          step, cfg, alive_r, render_n=render_n,
+                          generator=(None if inputs is None
+                                     else inputs.generator))
 
 
 def loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step, cfg,
@@ -288,6 +291,7 @@ def loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx, step, cfg,
         "psnr": -10.0 * torch.log10(torch.mean((out.rgb - image_gt) ** 2)
                                     + 1e-10),
         "overflow": out.overflow,
+        "truncated": out.truncated,
         "trunc_by_win": out.trunc_by_win,
         "pairs_used": out.pairs_used,
     }
@@ -351,17 +355,19 @@ def bin_view(cfg: ExperimentConfig, camera: Camera, gaussians: GaussianState,
         if cam_delta is not None:
             cam_v = cam_v.replace(viewmat=apply_se3_delta(cam_v.viewmat,
                                                           cam_delta))
-        proj = project_gaussians(means, quats, scales, op, cam_v,
-                                 near=rc.near, far=rc.far, eps2d=rc.eps2d,
-                                 antialiased=rc.antialiased,
-                                 radius_clip=rc.radius_clip)
-        return flat_bin_gaussians(
-            proj.mean2d, proj.radius, proj.depth, width=camera.width,
-            height=camera.height, tile_size=rc.tile_size, pair_budget=PB,
-            max_tiles_per_gaussian=rc.max_tiles_per_gaussian, block=B,
-            compute_landing=rc.flat_grad_transpose != "scatter",
-            expand_budget=auto_expand_budget(PB, N, rc.max_tiles_per_gaussian,
-                                             B))
+        with span("fs.project"):
+            proj = project_gaussians(means, quats, scales, op, cam_v,
+                                     near=rc.near, far=rc.far, eps2d=rc.eps2d,
+                                     antialiased=rc.antialiased,
+                                     radius_clip=rc.radius_clip)
+        with span("fs.bin"):
+            return flat_bin_gaussians(
+                proj.mean2d, proj.radius, proj.depth, width=camera.width,
+                height=camera.height, tile_size=rc.tile_size, pair_budget=PB,
+                max_tiles_per_gaussian=rc.max_tiles_per_gaussian, block=B,
+                compute_landing=rc.flat_grad_transpose != "scatter",
+                expand_budget=auto_expand_budget(
+                    PB, N, rc.max_tiles_per_gaussian, B))
 
 
 def _keep_adam(ok: torch.Tensor, new: AdamState, old: AdamState) -> AdamState:
@@ -385,88 +391,98 @@ def train_step(gaussians: GaussianState, opt: AdamState, cam_state,
     cfg.train.camera_opt. With `inputs` (StepInputs) the step reads its
     step-dependent values from the device instead of `step`, which is then
     None: that is the step a CUDA graph captures (train/graphs.py)."""
-    groups = adam_groups or DEFAULT_GROUPS
-    use_cam_opt = cfg.train.camera_opt
-    cam_deltas, cam_opt = cam_state
-    dev_kw = ({} if inputs is None
-              else dict(lr=inputs.lr, gate=inputs.gate))
-    if cfg.model.binary_opacities:
-        adc = cfg.train.adc
-        gaussians = gaussians.replace(logit_opacities=binary_opacity_surgery(
-            gaussians.logit_opacities, step,
-            threshold=cfg.model.binary_opacity_threshold, warmup=adc.warmup,
-            skip=adc.reset_alpha_every * adc.refine_every,
-            margin=cfg.model.binary_opacity_margin,
-            due=None if inputs is None else inputs.surgery))
-    fb = None
-    if cache is not None:
-        delta_v = pick(cam_deltas, cam_idx) if use_cam_opt else None
-        fb = cache.lookup(cam_idx, lambda: bin_view(
-            cfg, camera, gaussians, cam_idx, render_n, cam_delta=delta_v))
+    with span("fs.step", step):
+        groups = adam_groups or DEFAULT_GROUPS
+        use_cam_opt = cfg.train.camera_opt
+        cam_deltas, cam_opt = cam_state
+        dev_kw = ({} if inputs is None
+                  else dict(lr=inputs.lr, gate=inputs.gate))
+        if cfg.model.binary_opacities:
+            adc = cfg.train.adc
+            gaussians = gaussians.replace(
+                logit_opacities=binary_opacity_surgery(
+                    gaussians.logit_opacities, step,
+                    threshold=cfg.model.binary_opacity_threshold,
+                    warmup=adc.warmup,
+                    skip=adc.reset_alpha_every * adc.refine_every,
+                    margin=cfg.model.binary_opacity_margin,
+                    due=None if inputs is None else inputs.surgery))
+        fb = None
+        if cache is not None:
+            delta_v = pick(cam_deltas, cam_idx) if use_cam_opt else None
+            fb = cache.lookup(cam_idx, lambda: bin_view(
+                cfg, camera, gaussians, cam_idx, render_n, cam_delta=delta_v))
 
-    old = gaussians.params()
-    params = {k: v.detach().requires_grad_(True) for k, v in old.items()}
-    deltas = cam_deltas.detach().requires_grad_(use_cam_opt)
-    cap = gaussians.capacity
-    dev = gaussians.device
-    # the kernel backends (pallas, flat) surface gsplat's absgrad through
-    # table cols 6-7, and densification reads it; the "jax" backend has no
-    # such tap and falls back to the signed screen-position gradient. Only
-    # the tap that is read is differentiated.
-    use_absgrad = cfg.model.rasterize.backend in ("pallas", "flat")
-    tap = torch.zeros((cap, 2), device=dev, requires_grad=not use_absgrad)
-    abs_tap = torch.zeros((cap, 2), device=dev, requires_grad=use_absgrad)
-    loss, (_, aux) = compute_losses(
-        gaussians.replace(**params), camera, data, cam_idx, step, cfg, tap,
-        absgrad_tap=abs_tap, render_n=render_n, bins=fb,
-        cam_delta=pick(deltas, cam_idx) if use_cam_opt else None,
-        inputs=inputs)
-    leaves = list(params.values()) + [abs_tap if use_absgrad else tap]
-    if use_cam_opt:
-        leaves.append(deltas)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for g, x in zip(grads, leaves)]
-    n = len(params)
-    param_grads = dict(zip(params.keys(), grads[:n]))
-    tap_grad = grads[n]
+        old = gaussians.params()
+        params = {k: v.detach().requires_grad_(True) for k, v in old.items()}
+        deltas = cam_deltas.detach().requires_grad_(use_cam_opt)
+        cap = gaussians.capacity
+        dev = gaussians.device
+        # the kernel backends (pallas, flat) surface gsplat's absgrad through
+        # table cols 6-7, and densification reads it; the "jax" backend has
+        # no such tap and falls back to the signed screen-position gradient.
+        # Only the tap that is read is differentiated.
+        use_absgrad = cfg.model.rasterize.backend in ("pallas", "flat")
+        tap = torch.zeros((cap, 2), device=dev, requires_grad=not use_absgrad)
+        abs_tap = torch.zeros((cap, 2), device=dev, requires_grad=use_absgrad)
+        with span("fs.forward"):
+            loss, (_, aux) = compute_losses(
+                gaussians.replace(**params), camera, data, cam_idx, step, cfg,
+                tap, absgrad_tap=abs_tap, render_n=render_n, bins=fb,
+                cam_delta=pick(deltas, cam_idx) if use_cam_opt else None,
+                inputs=inputs)
+        leaves = list(params.values()) + [abs_tap if use_absgrad else tap]
+        if use_cam_opt:
+            leaves.append(deltas)
+        with span("fs.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for g, x in zip(grads, leaves)]
+        n = len(params)
+        param_grads = dict(zip(params.keys(), grads[:n]))
+        tap_grad = grads[n]
 
-    # non-finite guard: skip the whole update on a NaN/inf loss or gradient
-    # (the pose deltas' too), decided on the device (no host sync)
-    ok = torch.isfinite(loss.detach())
-    for g in grads[:n] + grads[n + 1:]:
-        ok = ok & torch.all(torch.isfinite(g))
-    tap_grad = torch.where(ok, tap_grad, torch.zeros_like(tap_grad))
+        with span("fs.update"):
+            # non-finite guard: skip the whole update on a NaN/inf loss or
+            # gradient (the pose deltas' too), decided on the device (no
+            # host sync)
+            ok = torch.isfinite(loss.detach())
+            for g in grads[:n] + grads[n + 1:]:
+                ok = ok & torch.all(torch.isfinite(g))
+            tap_grad = torch.where(ok, tap_grad, torch.zeros_like(tap_grad))
 
-    new_p, opt2 = adam_step(old, param_grads, opt, step, gaussians.alive,
-                            groups=groups, **dev_kw)
-    new_p = {k: torch.where(ok, new_p[k], old[k]) for k in old}
-    opt2 = _keep_adam(ok, opt2, opt)
-    gaussians2 = gaussians.replace(**new_p)
+            new_p, opt2 = adam_step(old, param_grads, opt, step,
+                                    gaussians.alive, groups=groups, **dev_kw)
+            new_p = {k: torch.where(ok, new_p[k], old[k]) for k in old}
+            opt2 = _keep_adam(ok, opt2, opt)
+            gaussians2 = gaussians.replace(**new_p)
 
-    if use_cam_opt:
-        # accumulated, bias-corrected Adam on the (V, 6) pose deltas
-        cam_p, cam_opt2 = adam_step(
-            {"cam_delta": cam_deltas}, {"cam_delta": grads[-1]}, cam_opt,
-            step, torch.ones(cam_deltas.shape[0], dtype=torch.bool,
-                             device=dev),
-            groups={"cam_delta": camera_group(cfg)}, **dev_kw)
-        cam_deltas = torch.where(ok, cam_p["cam_delta"], cam_deltas)
-        cam_opt = _keep_adam(ok, cam_opt2, cam_opt)
+            if use_cam_opt:
+                # accumulated, bias-corrected Adam on the (V, 6) pose deltas
+                cam_p, cam_opt2 = adam_step(
+                    {"cam_delta": cam_deltas}, {"cam_delta": grads[-1]},
+                    cam_opt, step,
+                    torch.ones(cam_deltas.shape[0], dtype=torch.bool,
+                               device=dev),
+                    groups={"cam_delta": camera_group(cfg)}, **dev_kw)
+                cam_deltas = torch.where(ok, cam_p["cam_delta"], cam_deltas)
+                cam_opt = _keep_adam(ok, cam_opt2, cam_opt)
 
-    radius = aux["radius"].detach()
-    if radius.shape[0] < cap:
-        radius = torch.cat([radius, torch.zeros(cap - radius.shape[0],
-                                                device=dev)])
-    st = accumulate_stats(stats, tap_grad, radius, camera.width, camera.height)
-    stats2 = RefineStats(
-        **{k: torch.where(ok, v, getattr(stats, k))
-           for k, v in st.fields().items()})
-    metrics = {"loss": loss.detach(), "psnr": aux["psnr"].detach(),
-               "overflow": aux["overflow"], "trunc_by_win": aux["trunc_by_win"],
-               "pairs_used": aux["pairs_used"],
-               "nonfinite": (~ok).to(torch.int32)}
-    return gaussians2, opt2, (cam_deltas, cam_opt), stats2, metrics
+            radius = aux["radius"].detach()
+            if radius.shape[0] < cap:
+                radius = torch.cat([radius, torch.zeros(cap - radius.shape[0],
+                                                        device=dev)])
+            st = accumulate_stats(stats, tap_grad, radius, camera.width,
+                                  camera.height)
+            stats2 = RefineStats(
+                **{k: torch.where(ok, v, getattr(stats, k))
+                   for k, v in st.fields().items()})
+        metrics = {"loss": loss.detach(), "psnr": aux["psnr"].detach(),
+                   "overflow": aux["overflow"], "truncated": aux["truncated"],
+                   "trunc_by_win": aux["trunc_by_win"],
+                   "pairs_used": aux["pairs_used"],
+                   "nonfinite": (~ok).to(torch.int32)}
+        return gaussians2, opt2, (cam_deltas, cam_opt), stats2, metrics
 
 
 def make_fused_intervals(cfg: ExperimentConfig, camera: Camera,
@@ -705,6 +721,9 @@ class Trainer:
     steps."""
 
     writer = True    # this process logs and writes (one rank of a mesh)
+    # the per-step counters _run_chunk sums, summed again over the chunks
+    # since the last log boundary into its history record
+    COUNTS = ("nonfinite_steps", "pairs_dropped", "pairs_truncated")
 
     def __init__(self, cfg: ExperimentConfig, camera: Camera, data: TrainData,
                  gaussians: GaussianState, scene_scale: float = 1.0,
@@ -741,7 +760,7 @@ class Trainer:
         self._grid_tiles = (-(-camera.width // rc.tile_size)
                             * -(-camera.height // rc.tile_size))
         self._budget_tiles = self._grid_tiles   # the tiles a budget serves
-        self._nf_acc = None
+        self._counts = None          # COUNTS since the last log boundary
         self._fused: dict = {}       # run_fused's FusedIntervals by key
         self._graph_pool = None      # one CUDA graph memory pool for them
         if self.auto_capacity:
@@ -854,10 +873,11 @@ class Trainer:
         this step, then the extra callbacks, then the recompact whenever the
         alive set can have changed (slots past render_n are never
         rasterized). Returns the refine's info (device tensors) or None."""
-        info, changed = self._mutate()
-        if changed and self.cfg.train.render_prefix:
-            self._recompact(int(self.gaussians.num_alive))
-        return info
+        with span("fs.refine_boundary"):
+            info, changed = self._mutate()
+            if changed and self.cfg.train.render_prefix:
+                self._recompact(int(self.gaussians.num_alive))
+            return info
 
     def save(self, path):
         """Full checkpoint: model, optimiser, stats, step, camera optimiser
@@ -955,13 +975,14 @@ class Trainer:
         return n_alive
 
     def _run_chunk(self, n: int):
-        """n steps from self.step -> (the last step's metrics, the count of
-        non-finite steps in the chunk)."""
+        """n steps from self.step -> (the last step's metrics, the chunk's
+        sums of COUNTS: its non-finite steps, the pairs its steps dropped
+        past the pair budget or K, and the pairs the cover window cut)."""
         cfg_p = patched_cfg(self.cfg, self.tile_capacity, self.cover_tiles)
         refresh = self.cfg.train.bin_refresh_steps
         cache = (BinCache(self.num_views, refresh)
                  if refresh > 0 and self._is_flat else None)
-        nonfinite = []
+        counts = []
         for _ in range(n):
             (self.gaussians, self.opt, self.cam_state, self.stats,
              metrics) = train_step(
@@ -970,9 +991,10 @@ class Trainer:
                 camera=self.camera, data=self.data,
                 adam_groups=self._adam_groups, render_n=self.render_n,
                 cache=cache)
-            nonfinite.append(metrics["nonfinite"])
+            counts += [metrics["nonfinite"], metrics["overflow"],
+                       metrics["truncated"]]
             self.step += 1
-        return metrics, torch.stack(nonfinite).sum()
+        return metrics, torch.stack(counts).view(n, 3).sum(0)
 
     def run(self, iterations: Optional[int] = None, log=print):
         """Train to `iterations` (cfg.train.iterations by default) in chunks
@@ -995,8 +1017,9 @@ class Trainer:
             if self.step < adc.warmup:
                 next_refine = adc.warmup
             n = max(1, min(n, next_refine - self.step))
-            metrics, nf_c = self._run_chunk(n)
-            self._nf_acc = nf_c if self._nf_acc is None else self._nf_acc + nf_c
+            metrics, counts = self._run_chunk(n)
+            self._counts = (counts if self._counts is None
+                            else self._counts + counts)
 
             self.refine_boundary()
             if (self.writer and self.image_log_dir is not None
@@ -1007,38 +1030,43 @@ class Trainer:
                 self.save(f"{self.checkpoint_dir}/ckpt_{self.step}")
 
             if self.step % cfg.train.log_every == 0 or self.step >= total:
-                # one host read for all logged scalars
-                vals = torch.stack([
-                    metrics["loss"].double(), metrics["psnr"].double(),
-                    metrics["overflow"].double(),
-                    metrics["pairs_used"].double(),
-                    self._nf_acc.double(),
-                    self.gaussians.num_alive.double(),
-                    *metrics["trunc_by_win"].double()]).tolist()
-                loss_h, psnr_h, ovf_h, pu_h, nf_h, n_alive = vals[:6]
-                tbw_h = [int(x) for x in vals[6:]]
-                self._nf_acc = None
-                if int(nf_h) and log:
-                    log(f"WARNING: skipped {int(nf_h)} non-finite step(s) "
-                        f"since the last log (now at step {self.step})")
-                rec = {
-                    "step": self.step, "loss": loss_h, "psnr": psnr_h,
-                    "num_gaussians": int(n_alive),
-                    "tile_overflow": int(ovf_h),
-                    "nonfinite_steps": int(nf_h),
-                    "capacity": self.gaussians.capacity,
-                    "pairs_used": int(pu_h),
-                    "elapsed_s": time.time() - t0,
-                }
-                self._rebucket(int(n_alive))
-                self._maybe_bump_tile_capacity(int(ovf_h))
-                self._maybe_resize_pair_budget(int(pu_h))
-                self._maybe_adjust_cover_window(tbw_h)
-                self.history.append(rec)
-                if log:
-                    log(f"step {rec['step']:6d}  loss {rec['loss']:.4f}  "
-                        f"psnr {rec['psnr']:.2f}  n {rec['num_gaussians']}")
+                with span("fs.log_boundary"):
+                    self._log_boundary(metrics, log, t0)
         return self.history
+
+    def _log_boundary(self, metrics: dict, log, t0: float):
+        """One host read for all logged scalars (the chunk's last metrics,
+        the COUNTS since the last log boundary, the population), the history
+        record, and the capacity, render-prefix, K / pair-budget and
+        cover-window policies."""
+        k = 5 + len(self.COUNTS)
+        vals = torch.stack([
+            metrics["loss"].double(), metrics["psnr"].double(),
+            metrics["overflow"].double(), metrics["pairs_used"].double(),
+            self.gaussians.num_alive.double(), *self._counts.double(),
+            *metrics["trunc_by_win"].double()]).tolist()
+        loss_h, psnr_h, ovf_h, pu_h, n_alive = vals[:5]
+        counts = dict(zip(self.COUNTS, (int(x) for x in vals[5:k])))
+        tbw_h = [int(x) for x in vals[k:]]
+        self._counts = None
+        nf_h = counts["nonfinite_steps"]
+        if nf_h and log:
+            log(f"WARNING: skipped {nf_h} non-finite step(s) "
+                f"since the last log (now at step {self.step})")
+        rec = {
+            "step": self.step, "loss": loss_h, "psnr": psnr_h,
+            "num_gaussians": int(n_alive), "tile_overflow": int(ovf_h),
+            **counts, "capacity": self.gaussians.capacity,
+            "pairs_used": int(pu_h), "elapsed_s": time.time() - t0,
+        }
+        self._rebucket(int(n_alive))
+        self._maybe_bump_tile_capacity(int(ovf_h))
+        self._maybe_resize_pair_budget(int(pu_h))
+        self._maybe_adjust_cover_window(tbw_h)
+        self.history.append(rec)
+        if log:
+            log(f"step {rec['step']:6d}  loss {rec['loss']:.4f}  "
+                f"psnr {rec['psnr']:.2f}  n {rec['num_gaussians']}")
 
     def _dump_debug_grid(self):
         """GT | rgb | depth | normal strip of this step's view, written as

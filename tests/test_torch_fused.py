@@ -317,25 +317,21 @@ def test_bench_torch_smoke_on_cpu(tmp_path):
 
 
 def test_profiling_timers_and_trace(tmp_path):
-    """utils/profiling.py: timer and timed feed one registry that report
-    reads (and resets); trace writes a Chrome trace and yields a profile
-    whose CPU run has no device kernel and no launch call."""
+    """utils/profiling.py: trace writes a Chrome trace and yields a profile
+    whose CPU run has no device kernel and no launch call; a training
+    step's spans come out in it as host records; host_calls counts every
+    launch call of a profile."""
+    from types import SimpleNamespace
+
     from fusionsense_tpu_torch.utils import profiling as PR
 
-    PR.report(reset=True)
-    with PR.timer("phase", sync=True, arg={"x": torch.ones(3)}):
-        torch.ones(8).sum()
-
-    @PR.timed("fn")
-    def fn(n):
-        return [torch.arange(n)]
-
-    for n in (3, 5):
-        fn(n)
-    rep = PR.report(reset=True)
-    assert rep["phase"]["calls"] == 1 and rep["fn"]["calls"] == 2
-    assert rep["fn"]["total_s"] >= 0 and PR.report() == {}
     with PR.trace(str(tmp_path / "tr")) as prof:
-        torch.ones(64).cumsum(0)
+        with PR.span("fs.step", 0):
+            torch.ones(64).cumsum(0)
     assert (tmp_path / "tr" / "trace.json").exists()
     assert PR.device_time(prof)[:2] == (0.0, 0) and PR.host_calls(prof) == 0
+    assert "fs.step" in (tmp_path / "tr" / "trace.json").read_text()
+    rows = [SimpleNamespace(key=k, count=n) for k, n in
+            (("cudaLaunchKernel", 5), ("cudaGraphLaunch", 2),
+             ("cudaMemcpyAsync", 1), ("aten::mul", 9))]
+    assert PR.host_calls(SimpleNamespace(key_averages=lambda: rows)) == 8
