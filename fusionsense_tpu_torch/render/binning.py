@@ -5,12 +5,17 @@ block-aligned per-tile segments of one pair-budget array (`flat`).
 Counterpart of fusionsense_tpu/render/binning.py (TileBins, bin_gaussians,
 FlatBins, auto_expand_budget, flat_bin_gaussians), with its 16-bit
 log-depth key, the dense N*C and the compact expand-budget enumerations, the
-block maps and the landing maps. Index rules differ between the frameworks: a
-JAX gather clamps and a `mode="drop"` scatter drops an out-of-range index,
-while torch raises (CPU) or asserts on the device (CUDA). Every index below
-is clipped or masked before use, and the drop scatter writes into one spare
-slot that is then cut off. Sorts are stable (torch.sort(stable=True)); the
-JAX reference's sort_key_val gives ties no guaranteed order (ROADMAP F1).
+block maps and the landing maps. Where the reference finds a sorted pair's
+segment head, block-aligned start or compact row owner by a running max or
+min, the port reads the same value from the per-tile offsets or the
+per-Gaussian inclusive ends: a gather in place of a serial scan, which
+torch runs in one CTA on the device. Index rules differ between the
+frameworks: a JAX gather clamps and a `mode="drop"` scatter drops an
+out-of-range index, while torch raises (CPU) or asserts on the device
+(CUDA). Every index below is clipped or masked before use, and the drop
+scatter writes into one spare slot that is then cut off. Sorts are stable
+(torch.sort(stable=True)); the JAX reference's sort_key_val gives ties no
+guaranteed order (ROADMAP F1).
 """
 from __future__ import annotations
 
@@ -158,16 +163,13 @@ def flat_bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
         c_live = w_live * h_live
         S = torch.cumsum(c_live, 0) - c_live                     # exclusive
         total_live = S[-1] + c_live[-1]
-        # row -> gaussian: each live gaussian's id at its segment start
-        # (starts past EB go to the spare slot EB), then a running max
-        start_ok = (c_live > 0) & (S < EB)
-        gid = torch.arange(N, **i64)
-        seg_mark = torch.full((EB + 1,), -1, **i64)
-        seg_mark.scatter_reduce_(
-            0, torch.where(start_ok, S, torch.full_like(S, EB)),
-            torch.where(start_ok, gid, torch.full_like(gid, -1)), "amax")
-        g_of = torch.clamp_min(torch.cummax(seg_mark[:EB], 0).values, 0)
+        # row -> gaussian: the first whose inclusive end passes the row;
+        # rows past total_live keep the last live gaussian (0 if none)
         j = torch.arange(EB, **i64)
+        gid = torch.arange(N, **i64)
+        g_last = torch.max(torch.where(c_live > 0, gid, torch.zeros_like(gid)))
+        g_of = torch.minimum(
+            torch.searchsorted(S + c_live, j, right=True), g_last)
         r = j - S[g_of]
         live = j < total_live
         # window slot r of a w-wide window packed as dy*8+dx (0 where w = 0),
@@ -244,19 +246,11 @@ def flat_bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
 
     landing = None
     if compute_landing:
+        # a sorted pair lands at its tile's aligned start plus its distance
+        # from the tile's raw start; the dead tile is masked by `ok`
         i = torch.arange(n_pairs, **i64)
-        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                              sorted_tile[1:] != sorted_tile[:-1]])
-        zi = torch.zeros_like(i)
-        seg_head = torch.cummax(torch.where(is_start, i, zi), 0).values
-        head_or_inf = torch.where(is_start, i, torch.full_like(i, n_pairs))
-        nh_incl = torch.flip(torch.cummin(torch.flip(head_or_inf, [0]), 0).values,
-                             [0])
-        nh = torch.cat([nh_incl[1:], torch.full((1,), n_pairs, **i64)])
-        seg_alen = torch.where(is_start, ((nh - i + B - 1) // B) * B, zi)
-        astart_head = torch.cumsum(seg_alen, 0) - seg_alen
-        astart_elem = torch.cummax(torch.where(is_start, astart_head, zi), 0).values
-        flat_pos = astart_elem + (i - seg_head)
+        shift = astarts - starts
+        flat_pos = i + shift[torch.clamp(sorted_tile, 0, num_tiles - 1)]
         ok = (sorted_tile < num_tiles) & (flat_pos < PB)
         landing_sorted = torch.where(ok, flat_pos, torch.full_like(flat_pos, -1))
         # sorted_pair is a permutation: inverting it is one scatter
@@ -328,14 +322,11 @@ def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
     idx = torch.where(mask, idx, torch.full_like(idx, -1))
 
     # landing: each sorted position's flat (tile * K + slot), found in sorted
-    # order (slot = distance from the segment head, by a running max), then
-    # scattered back to pair order (sorted_pair is a permutation)
+    # order (slot = distance from its tile's head in `bounds`, whose last
+    # entry heads the dead tile), then scattered back to pair order
+    # (sorted_pair is a permutation)
     i = torch.arange(N * C, **i64)
-    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                          sorted_tile[1:] != sorted_tile[:-1]])
-    seg_head = torch.cummax(torch.where(is_start, i, torch.zeros_like(i)),
-                            0).values
-    slot_sorted = i - seg_head
+    slot_sorted = i - bounds[sorted_tile]
     flat_sorted = torch.where((slot_sorted < K) & (sorted_tile < num_tiles),
                               sorted_tile * K + slot_sorted,
                               torch.full_like(i, -1))
