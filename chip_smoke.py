@@ -16,8 +16,15 @@ Phases (any failure exits non-zero and prints no result):
     against its plain twin on the same inputs (fwd_blocks' count of the
     rows it staged against the plain cull's); the longest run, the rows
     culled (dead slots among them) and the smallest skip-decision margin;
+    then the preprocess kernel pair against its plain version on the
+    first PRE_N Gaussians and view 0 (check_preprocess: every float output
+    and input gradient, radius and valid equal off the rows at a rounding
+    tie, and d viewmat from a second backward), each timed with the plain
+    version beside its byte bound;
  4. the flat path: Trainer.run for 60 steps (the bin cache is refreshed and
-    reused), with every launch counter zeroed just before and read after;
+    reused), with every launch counter zeroed just before and read after
+    (the preprocess pair's too: at least one forward and one backward a
+    step, no plain call);
     the last 50 steps, one chunk at one shape, are timed;
  5. K1/K2 and their stages against plain versions again, on the trained
     state at the shape those 50 steps ran, each timed with CUDA events
@@ -75,12 +82,12 @@ Phases (any failure exits non-zero and prints no result):
     cloud from depth both run; cli.train.main with --backend pallas for
     600 steps (warmup 100, stop-split 600, so the high-grad export fires at
     step 100; touch at 150, checkpoints every 300, the CLI's default --mesh
-    tsdf sugar-coarse), then a second main resumed from ckpt_300 to step
-    360 (an empty --mesh). Seconds per stage (the mesh stage's too), the
+    tsdf sugar-coarse), then a second main resumed from ckpt_600 to step
+    699 (an empty --mesh). Seconds per stage (the mesh stage's too), the
     prior and seed counts, ms/step, peak memory, the K3/K4 launches (their
     plain twins never), the metrics.json means and the logged PSNR, which
     must rise; every artifact read back through the port's own readers; the
-    resumed run must enter at step 300 with the patch frozen, and its
+    resumed run must enter at step 600 with the patch frozen, and its
     high-grad export (from the settled population) must find points whose
     clusters and ranks read back; then K3/K4 against their plain versions
     on the first run's trained state, and timed there; then fs-mesh (tsdf)
@@ -177,7 +184,8 @@ Phases (any failure exits non-zero and prints no result):
     PSNR inside the JAX package's float32 seed envelope read from
     tests/torch_long_parity_jax.json, one line per boundary; K1/K2 at
     every step, no plain twin;
-21. a {"kernels": [...]} line for all four kernels (K3/K4 timed at the
+21. a {"kernels": [...]} line for all four kernels and the preprocess
+    pair (its launches those of the flat path's 60 steps; K3/K4 timed at the
     fusionsense path's post-refine shape; launches those of every path
     that runs the kernel, graph replays, the mesh renders, fs-render's
     renders, the viewer phase's steps, the sharded ranks' steps and the
@@ -216,6 +224,17 @@ TOL_OUT, TOL_ALPHA = 1e-5, 1e-6
 # dtab is held column by column at the column's own scale: max|d| of a
 # column <= TOL_DTAB_REL * max|dtab_plain| of that column
 TOL_DTAB_REL = 1e-5
+# the preprocess kernel pair (render/preprocess.py): the benchmark cell's
+# render prefix at its warm boundary, and tests/test_torch_preprocess.py's
+# limits (here over each array's largest |plain|), plus PRE_ULPS times what
+# the plain version moves when its inputs move by one ulp
+PRE_N = 24_576
+TOL_PRE_FWD, TOL_PRE_GRAD = 1e-5, 5e-5
+PRE_ULPS = 4       # times the plain version's own one-ulp sensitivity
+# radius and valid must be equal but on a row whose pre-ceil radius, or a
+# screen bound's distance to its position, lies this close (relatively) to
+# the value where the two sides may round across it (as the tests' TIE_REL)
+PRE_TIE = 1e-5
 G_SCALE = 1e-4    # cotangent scale for K2's check: ~30x the per-pixel
 #                   cotangent of a mean loss over 640x480
 # the blend_bf16 branches (N5) against their plain twins, at the float32
@@ -247,7 +266,16 @@ SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # the pipeline phase: fs-train in the port on the blob capture written at
 # the bench's width (the fixture's focal 110 at 128x96, scaled x5)
 PIPE_ITERS, PIPE_WARMUP, PIPE_STOP_SPLIT = 600, 100, 600
-PIPE_TOUCH_AT, PIPE_SAVE, PIPE_RESUME_ITERS = 150, 300, 360
+PIPE_TOUCH_AT, PIPE_SAVE = 150, 300
+# the second run resumes from the last checkpoint (step PIPE_ITERS) for 99
+# steps, the most before the refine at 700 resets the stats its high-grad
+# export reads: DBSCAN's min_samples 15 needs the settled population. From
+# ckpt_300 after 60 steps the densest neighbourhood held 13-17 points (0-2
+# core points), and the one cluster came and went with float rounding;
+# from ckpt_600 after 99 steps 17-57 core points in 1-7 clusters, with the
+# seed cloud as written and moved one ulp, before and after the preprocess
+# kernels
+PIPE_RESUME_ITERS = 699
 PIPE_METRICS = ("psnr", "masked_psnr", "ssim", "depth_abs_rel", "normal_mae",
                 "fps", "num_gaussians")
 # the fused phase: refines every 50 from step 100, eager to FUSED_FROM, then
@@ -1061,6 +1089,194 @@ def dense_config():
                                   bin_refresh_steps=0))
 
 
+def check_preprocess(torch, tr):
+    """The preprocess kernel pair against its plain version on the
+    trainer's first PRE_N Gaussians (scales made anisotropic) and view 0,
+    with cotangents on what the
+    tables read (mean2d + tap, conic, op, channels); then each kernel and
+    the plain version's forward and backward timed with CUDA events, beside
+    the kernels' byte bounds. Returns the {"kernels"} entries."""
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.render import preprocess as PP
+    from fusionsense_tpu_torch.render.rasterize import gaussian_flat_normals
+
+    cfg = tr.cfg.model.rasterize
+    cam = tr.camera.index(0)
+    dev = cam.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        ins = [x[:PRE_N].contiguous() for x in activated(tr.gaussians)]
+        # the seed cloud's scales are isotropic, which leaves a quaternion
+        # no gradient but rounding: make them anisotropic
+        ins[2] = ins[2] * torch.exp(0.5 * torch.randn(
+            ins[2].shape, generator=gen, device=dev))
+        ins.append(gaussian_flat_normals(*ins[1:3], ins[0], cam.origin))
+        ins.append(torch.zeros((PRE_N, 2), device=dev))
+    m, q, s, o, c, nrm, tap = ins
+    cam_t = (cam.viewmat.contiguous(), cam.fx, cam.fy, cam.cx, cam.cy)
+    ints, floats = PP._geometry(cfg, cam.width, cam.height)
+    g = {k: torch.randn(shape, generator=gen, device=dev) for k, shape in (
+        ("mean2d_t", (PRE_N, 2)), ("conic", (PRE_N, 3)), ("op", (PRE_N,)),
+        ("chan", (PRE_N, 7)))}
+    cots = (None, g["mean2d_t"], None, g["conic"], None, g["op"], g["chan"])
+    needs = (True,) * 6 + (False,)   # as the cell's steps: no d viewmat
+
+    def fwd():
+        return PP.preprocess_fwd_cuda(m, q, s, o, c, nrm, tap, cam_t, ints,
+                                      floats)
+
+    def bwd():
+        return PP.preprocess_bwd_cuda(m, q, s, o, c, cam_t, ints, floats,
+                                      cots, needs)
+
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+
+    def plain_fwd():
+        return PP.preprocess_plain(*leaves[:5], cam, cfg, leaves[5],
+                                   leaves[6])
+
+    pre = plain_fwd()
+    outs = (pre.mean2d, pre.proj.conic, pre.op, pre.channels)
+    gs = (g["mean2d_t"], g["conic"], g["op"], g["chan"])
+
+    def plain_bwd():
+        return torch.autograd.grad(outs, leaves[:6], gs, retain_graph=True)
+
+    def rel(got, want):
+        # over the array's largest |plain|, not each column's: a column
+        # whose terms cancel holds nothing but rounding
+        if got.dtype == torch.bool:
+            return float((got != want).float().mean())
+        return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+    def plain_at(xs):
+        """The plain version's outputs, and the gradients of the inputs and
+        of the viewmat, at inputs xs."""
+        lv = [x.detach().clone().requires_grad_(True) for x in xs]
+        vm = cam.viewmat.detach().clone().requires_grad_(True)
+        p = PP.preprocess_plain(*lv[:5], cam.replace(viewmat=vm), cfg, lv[5],
+                                lv[6])
+        grads = torch.autograd.grad(
+            (p.mean2d, p.proj.conic, p.op, p.channels), lv[:6] + [vm], gs)
+        return (p.proj.mean2d, p.mean2d, p.proj.depth, p.proj.conic,
+                p.proj.radius, p.proj.valid, p.proj.compensation, p.op,
+                p.channels), grads
+
+    k_out = fwd()
+    k_grad = bwd()
+    # the camera-optimisation branch (bwd_kernel<true> and its fixed-order
+    # reduction): every gradient again, d viewmat with them
+    k_grad_cam = PP.preprocess_bwd_cuda(m, q, s, o, c, cam_t, ints, floats,
+                                        cots, (True,) * 7)
+    torch.cuda.synchronize()
+    p_out, p_grad = plain_at(ins)
+    # the plain version's own float32 sensitivity: its change when every
+    # input moves by one ulp at random (a large Gaussian's determinant
+    # cancels hundreds of ulps, in the kernels and in the plain version)
+    q_out, q_grad = plain_at([x * (1 + 2.0 ** -23 * torch.randint(
+        -1, 2, x.shape, generator=gen, device=dev)) for x in ins])
+    names = ("mean2d", "mean2d_t", "depth", "conic", "radius", "valid",
+             "comp", "op", "chan")
+    gnames = ("means", "quats", "scales", "opacities", "colors", "normals")
+    float_names = [n for n in names if n not in ("radius", "valid")]
+    k_fwd, p_fwd, q_fwd = (dict(zip(names, x)) for x in (k_out, p_out, q_out))
+    fwd_err = {n: rel(k_fwd[n], p_fwd[n].detach()) for n in float_names}
+    fwd_ulp = {n: rel(q_fwd[n].detach(), p_fwd[n].detach())
+               for n in float_names}
+    grad_err = {n: rel(a, b) for n, a, b in zip(gnames, k_grad, p_grad)}
+    grad_err.update({f"{n} (cam)": rel(a, b) for n, a, b in zip(
+        gnames + ("viewmat",), k_grad_cam, p_grad)})
+    grad_ulp = {n: rel(a, b) for n, a, b in zip(gnames + ("viewmat",),
+                                                 q_grad, p_grad)}
+    grad_ulp.update({f"{n} (cam)": grad_ulp[n] for n in grad_ulp})
+    # radius and valid equal except on a row at a rounding tie
+    ties = preprocess_ties(torch, p_fwd, cam.width, cam.height)
+    keep = ~ties
+    flag_err = {n: int((k_fwd[n][keep] != p_fwd[n][keep]).sum())
+                for n in ("radius", "valid")}
+    log(f"preprocess at N = {PRE_N} (view 0, SH {cfg.sh_degree}): forward "
+        f"max |d| / max |plain| {fwd_err}; radius, valid: rows that differ "
+        f"{flag_err} off {int(ties.sum())} rows at a tie (on them "
+        f"{int((k_fwd['radius'][ties] != p_fwd['radius'][ties]).sum())}, "
+        f"{int((k_fwd['valid'][ties] != p_fwd['valid'][ties]).sum())}); "
+        f"gradients {grad_err} ((cam): the backward with d viewmat); the "
+        f"plain version moved by one input ulp: forward {fwd_ulp}, "
+        f"gradients {grad_ulp}")
+    bad = [n for n in float_names
+           if fwd_err[n] > TOL_PRE_FWD + PRE_ULPS * fwd_ulp[n]]
+    bad += [n for n in grad_err
+            if grad_err[n] > TOL_PRE_GRAD + PRE_ULPS * grad_ulp[n]]
+    bad += [n for n, v in flag_err.items() if v]
+    if bad:
+        raise RuntimeError(f"preprocess: the kernels disagree with the plain "
+                           f"version in {bad}")
+    floats_err = [fwd_err[n] for n in float_names]
+    K = c.shape[1]
+    fwd_bytes = PRE_N * (4 * (3 + 4 + 3 + 1 + 3 * K + 3 + 2)
+                         + 4 * (2 + 2 + 1 + 3 + 1 + 1 + 1 + 7) + 1)
+    bwd_bytes = PRE_N * (4 * (3 + 4 + 3 + 1 + 3 * K) + 4 * (2 + 3 + 1 + 7)
+                         + 4 * (3 + 4 + 3 + 1 + 3 * K + 3))
+    entries = timed_entries("fusionsense_tpu_torch/csrc/preprocess.cu", [
+        ("preprocess_fwd", "none (the JAX package leaves it to XLA)", fwd,
+         plain_fwd, fwd_bytes / PEAK_BYTES * 1e3, "bytes"),
+        ("preprocess_bwd", "none (the JAX package leaves it to XLA)", bwd,
+         plain_bwd, bwd_bytes / PEAK_BYTES * 1e3, "bytes")])
+    entries[0]["max_abs_err"] = max(floats_err)
+    entries[1]["max_abs_err"] = max(grad_err.values())
+    # back to back, a call's host side (checks, allocations, the ctypes
+    # call) outlasts its kernel, so CUDA events time the host; the
+    # profiler reads the card's own time of every kernel a call launches
+    for e, fn, fn_plain in ((entries[0], fwd, plain_fwd),
+                            (entries[1], bwd, plain_bwd)):
+        e["device_ms"] = device_ms(torch, fn, TIMED_LAUNCHES)
+        e["plain_device_ms"] = device_ms(torch, fn_plain, TIMED_LAUNCHES)
+        log(f"{e['name']}: the card's time {e['device_ms']:.4f} ms a call "
+            f"(plain {e['plain_device_ms']:.4f} ms), bound "
+            f"{e['bound_ms']:.4f} ms")
+    return entries
+
+
+def preprocess_ties(torch, p, width, height):
+    """The rows of the plain version's outputs p (check_preprocess's dict)
+    whose radius or valid flag may round either way between the kernels
+    and the plain version (tests/test_torch_preprocess.py near_ties): the
+    pre-ceil radius, recomputed from the conic, within PRE_TIE of an
+    integer, or a screen bound within PRE_TIE of the position."""
+    with torch.no_grad():
+        ca, cb, cc = p["conic"].unbind(-1)
+        det = ca * cc - cb * cb       # 1 / det of the 2D covariance
+        a, b = cc / det, ca / det
+        mid = 0.5 * (a + b)
+        lam1 = mid + torch.sqrt(torch.clamp_min(mid * mid - 1.0 / det, 0.0))
+        raw = 3.0 * torch.sqrt(torch.clamp_min(lam1, 0.0))
+        tie = (raw - torch.round(raw)).abs() <= PRE_TIE * raw.abs().clamp_min(1.0)
+        r = torch.ceil(raw)
+        mx, my = p["mean2d"][:, 0], p["mean2d"][:, 1]
+        for v, hi in ((mx, width), (my, height)):
+            for d in (v + r, v - r - hi):
+                tie |= d.abs() <= PRE_TIE * v.abs().clamp_min(1.0)
+        return tie
+
+
+def device_ms(torch, fn, n):
+    """Mean ms a call of fn keeps the card busy: the summed device time
+    of every kernel, copy and fill of n calls under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and not e.is_user_annotation())
+    return ns / n / 1e6
+
+
 def train_path(torch, tr, name, counters, kernels):
     """Trainer.run for WARM_STEPS, then to TRAIN_STEPS, timed, with every
     launch counter zeroed just before and read just after. `kernels` names
@@ -1161,7 +1377,7 @@ def fused_path(torch, name, cfg, cams, data, init, dev, counters, kernels):
     n_b = tr_b.sync_policies(ms)
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     for k, v in G.REPLAYED.items():
-        launches[k] += v
+        launches[k] = launches.get(k, 0) + v
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stats = tr_b.graph_stats()
     pool = G.pool_bytes(tr_b._graph_pool)
@@ -1592,7 +1808,7 @@ def pipeline_path(torch, dev, counters, card):
     the blob capture written on the card, its seed cloud dropped so the
     visual hull and the seed cloud from depth both run; then
     cli.train.main with the pallas backend (K3/K4) for PIPE_ITERS steps and
-    its default meshes, and a second main resumed from the mid-run
+    its default meshes, and a second main resumed from its last
     checkpoint. Every artifact is read back through the port's own
     readers; then K3/K4 are held against their plain versions on the first
     run's trained state, and fs-mesh and fs-eval run on its last
@@ -1660,7 +1876,7 @@ def pipeline_path(torch, dev, counters, card):
         frozen_end = frozen_alive(pipe.trainer)
         hist = pipe.trainer.history
         times.clear()
-        resume = out / f"ckpt_{PIPE_SAVE}"
+        resume = out / f"ckpt_{PIPE_ITERS}"
         args[args.index("--iterations") + 1] = str(PIPE_RESUME_ITERS)
         pipe2 = fs_train(["--data", str(scene), "--output-dir", str(out_root),
                           "--experiment-name", "resume", "--resume",
@@ -1684,7 +1900,7 @@ def pipeline_path(torch, dev, counters, card):
     fg, merged = read_ply(out / "foreground_pcd.ply"), read_ply(
         out / "merged_pcd.ply")
     high = read_pcd(out / "high_grad_pts.pcd")
-    # the resumed run exports from the settled population (step 300 on)
+    # the resumed run exports from the settled population (step 600 on)
     high2 = read_pcd(out_root / "resume" / "high_grad_pts.pcd")
     clusters = np.unique(high2["cluster"]) if n_high2 else np.zeros(0)
     ranks = np.unique(high2["grad_rank"]) if n_high2 else np.zeros(0)
@@ -1716,7 +1932,7 @@ def pipeline_path(torch, dev, counters, card):
         f"{hist[-1]['psnr']:.3f} (step {hist[-1]['step']})")
     log(f"pipeline resume: trainer entered at (step, frozen-alive) "
         f"{entries[-1]}; {pipe2.trainer.step} steps at the end; "
-        f"{1e3 * times['run'] / (PIPE_RESUME_ITERS - PIPE_SAVE):.2f} ms/step")
+        f"{1e3 * times['run'] / (PIPE_RESUME_ITERS - PIPE_ITERS):.2f} ms/step")
 
     if not (len(fg["points"]) == n_hull > 0 and len(merged["points"]) == n_seed
             and len(high["points"]) == n_high):
@@ -1734,11 +1950,11 @@ def pipeline_path(torch, dev, counters, card):
             launches[f"{k}_plain"] for k in names):
         raise RuntimeError(f"pipeline: the path missed K3/K4 or ran a plain "
                            f"version: {launches}")
-    if not (entries[-1] == (PIPE_SAVE, frozen_end) and frozen_end > 0
+    if not (entries[-1] == (PIPE_ITERS, frozen_end) and frozen_end > 0
             and pipe2.trainer.step == PIPE_RESUME_ITERS
             and frozen_alive(pipe2.trainer) == frozen_end):
         raise RuntimeError(f"pipeline: the resumed run entered at "
-                           f"{entries[-1]}, want ({PIPE_SAVE}, {frozen_end})")
+                           f"{entries[-1]}, want ({PIPE_ITERS}, {frozen_end})")
     if not np.isfinite(high["points"]).all():
         raise RuntimeError("pipeline: non-finite high-grad points")
     meshes = {m: read_ply(out / f) for m, f in (
@@ -3392,7 +3608,7 @@ def long_parity_path(torch, dev, counters, card):
     torch.cuda.synchronize()
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     for k, v in G.REPLAYED.items():
-        launches[k] += v
+        launches[k] = launches.get(k, 0) + v
     misses = []
     for step in sorted(env):
         have = [r[step] for r in runs.values() if step in r]
@@ -3438,6 +3654,7 @@ def main():
         from fusionsense_tpu_torch.kernels.build import SOURCES, build_all
         from fusionsense_tpu_torch.render import composite2 as C2
         from fusionsense_tpu_torch.render import flat_composite as FC
+        from fusionsense_tpu_torch.render import preprocess as PP
         from fusionsense_tpu_torch.train.trainer import Trainer
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
@@ -3478,14 +3695,23 @@ def main():
     log(f"scene: {time.perf_counter() - t0:.1f} s (GT budget {gt_budget}); "
         f"capacity {tr.gaussians.capacity}, render_n {tr.render_n}")
 
-    # 3. K1/K2 against their plain versions, at the initial shapes
+    # 3. K1/K2 against their plain versions, at the initial shapes; the
+    # preprocess kernel pair against its plain version, and timed
     errs0, _ = check_kernels(torch, tr, tr.tile_capacity, tr.cover_tiles,
                              timed=False)
+    pre_kernels = check_preprocess(torch, tr)
 
-    # 4. the flat path
+    # 4. the flat path (the preprocess pair once per step and view render)
     flat_names = ("flat_composite_fwd", "flat_composite_bwd")
+    PP.reset_launch_counts()
     launches, ms_step, timed_shape = train_path(torch, tr, "flat", (FC, C2),
                                                 flat_names)
+    for k, key in zip(pre_kernels, ("fwd", "bwd")):
+        k["launches"] = PP.LAUNCHES[f"preprocess_{key}"]
+    if (min(k["launches"] for k in pre_kernels) < TRAIN_STEPS
+            or PP.LAUNCHES["preprocess_plain"]):
+        raise RuntimeError(f"flat: the main path missed the preprocess "
+                           f"kernels: {PP.LAUNCHES}")
 
     # 5. K1/K2 against their plain versions at the timed steps' shape
     errs1, kernels = check_kernels(torch, tr, *timed_shape, timed=True)
@@ -3588,7 +3814,7 @@ def main():
         k["launches"] += long_launches[f"flat_composite_{key}"]
 
     # 21. results
-    print(json.dumps({"kernels": kernels + fs_kernels}))
+    print(json.dumps({"kernels": kernels + fs_kernels + pre_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "fusionsense_tpu_torch"
-SOURCES = ("flat_composite", "composite2")
+SOURCES = ("flat_composite", "composite2", "preprocess")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -105,22 +105,26 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name).path))
 
 
-def launch(name: str, entry_points: dict, fn: str, tensors, ints) -> None:
+def launch(name: str, entry_points: dict, fn: str, tensors, ints,
+           floats=()) -> None:
     """Call the C entry point `fn` of csrc/<name>.cu with the tensors' data
-    pointers, then `ints`, then the current CUDA stream of the first
-    tensor's device, and raise if it returns a CUDA error. entry_points
-    maps each entry point of the library to its (pointer, int) argument
+    pointers (None passes a null pointer), then `ints`, then `floats` (as
+    C floats), then the current CUDA stream of the first tensor's device,
+    and raise if it returns a CUDA error. entry_points maps each entry point
+    of the library to its (pointer, int) or (pointer, int, float) argument
     counts; the library is typed from it on first use."""
     import torch
 
     lib = load(name)
     if not getattr(lib, "_fs_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for ep, (n_ptr, n_int) in entry_points.items():
-            getattr(lib, ep).argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for ep, (n_ptr, n_int, *n_float) in entry_points.items():
+            getattr(lib, ep).argtypes = ([vp] * n_ptr + [ci] * n_int
+                                         + [cf] * sum(n_float) + [vp])
             getattr(lib, ep).restype = ci
         lib._fs_typed = True
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    err = getattr(lib, fn)(*(t.data_ptr() for t in tensors), *ints, stream)
+    ptrs = (None if t is None else t.data_ptr() for t in tensors)
+    err = getattr(lib, fn)(*ptrs, *ints, *floats, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")

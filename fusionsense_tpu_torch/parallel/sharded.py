@@ -109,7 +109,7 @@ def tile_block(num_tiles: int, n_shards: int, me: int):
 def flat_local_table(pre, valid, camera: Camera, rcfg, tile_lo: int,
                      num_tiles_local: int, absgrad_tap=None):
     """The flat pair table of the tile block [tile_lo, tile_lo +
-    num_tiles_local): pre is the rasterizer's _Prepared (its proj.valid
+    num_tiles_local): pre is the rasterizer's Prepared (its proj.valid
     already restricted to the rank's depth slice), valid that mask. Blocks
     are laid out over the local tiles; the landing map is local (-1 for
     other blocks' pairs). Returns (table (PB, 8 + Cpad), FlatBins)."""

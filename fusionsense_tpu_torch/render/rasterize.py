@@ -24,7 +24,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from fusionsense_tpu_torch.core.cameras import Camera
-from fusionsense_tpu_torch.core.sh import eval_sh
 from fusionsense_tpu_torch.core.transforms import normalize, quat_to_rotmat
 from fusionsense_tpu_torch.device import check_on, resolve_device
 from fusionsense_tpu_torch.render.binning import (
@@ -35,9 +34,8 @@ from fusionsense_tpu_torch.render.composite import (
 )
 from fusionsense_tpu_torch.render.composite2 import composite2
 from fusionsense_tpu_torch.render.flat_composite import flat_composite
-from fusionsense_tpu_torch.render.project import (
-    alpha_coefficients, project_gaussians,
-)
+from fusionsense_tpu_torch.render.preprocess import Prepared, preprocess
+from fusionsense_tpu_torch.render.project import alpha_coefficients
 from fusionsense_tpu_torch.utils.profiling import span
 
 BACKENDS = ("jax", "pallas", "flat")
@@ -161,41 +159,16 @@ def pair_budget(cfg: RasterizeConfig, grid: TileGrid) -> int:
     return -(-cfg.tile_capacity * grid.num_tiles // B) * B
 
 
-class _Prepared(NamedTuple):
-    proj: object                 # Projected
-    mean2d: torch.Tensor         # (N, 2) screen means, tap added
-    op: torch.Tensor             # (N,) opacities, AA-compensated if asked
-    channels: torch.Tensor       # (N, 7) rgb, depth, normal
-
-
 def _prepare(means, quats, scales, opacities, colors, camera, cfg, normals,
-             mean2d_tap) -> _Prepared:
-    """Projection and the per-Gaussian blended channels, for every backend."""
+             mean2d_tap) -> Prepared:
+    """Projection and the per-Gaussian blended channels, for every backend:
+    render/preprocess.py (its kernel pair for CUDA tensors)."""
     with span("fs.project"):
-        proj = project_gaussians(means, quats, scales, opacities, camera,
-                                 near=cfg.near, far=cfg.far, eps2d=cfg.eps2d,
-                                 antialiased=cfg.antialiased,
-                                 radius_clip=cfg.radius_clip)
-    mean2d = proj.mean2d
-    if mean2d_tap is not None:
-        mean2d = mean2d + mean2d_tap
-    op = opacities * proj.compensation if cfg.antialiased else opacities
-    cam_origin = camera.origin
-    if colors.ndim == 3:
-        viewdir = normalize(means - cam_origin)
-        # maximum, not clamp_min: a colour exactly at 0 (a black seed point)
-        # passes half the gradient, as jnp.clip does at the tie
-        rgb = eval_sh(colors, viewdir, cfg.sh_degree) + 0.5
-        rgb_g = torch.maximum(rgb, torch.zeros_like(rgb))
-    else:
-        rgb_g = colors
-    if normals is None:
-        normals = gaussian_flat_normals(quats, scales, means, cam_origin)
-    channels = torch.cat([rgb_g, proj.depth[:, None], normals], dim=-1)
-    return _Prepared(proj, mean2d, op, channels)
+        return preprocess(means, quats, scales, opacities, colors, camera,
+                          cfg, normals, mean2d_tap)
 
 
-def _gaussian_table(pre: _Prepared, absgrad_tap: Optional[torch.Tensor]):
+def _gaussian_table(pre: Prepared, absgrad_tap: Optional[torch.Tensor]):
     """(N, 8 + Cpad) rows [mx, my, ca, cb, cc, log_op, abs_tap_x, abs_tap_y,
     chan..., pad] and the dead row (log_op = -1e10, else 0)."""
     N = pre.mean2d.shape[0]

@@ -41,9 +41,9 @@ import time
 
 import torch
 
-from fusionsense_tpu_torch.render import composite2, flat_composite
+from fusionsense_tpu_torch.render import composite2, flat_composite, preprocess
 
-_KERNELS = (flat_composite, composite2)
+_KERNELS = (flat_composite, composite2, preprocess)
 
 # kernel launches made by graph replays, per kernel entry point (the keys
 # of the kernel modules' CAPTURED); chip_smoke.py zeroes these with the

@@ -677,11 +677,14 @@ def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
     """Every source is listed, each build input is found, and editing a
     header that a source includes changes that source's build key (and
     only that of the sources that include it)."""
-    assert set(build.SOURCES) == {"flat_composite", "composite2"}
+    assert set(build.SOURCES) == {"flat_composite", "composite2",
+                                  "preprocess"}
     header = "composite_common.cuh"
+    sharing = ("flat_composite", "composite2")
     for name in build.SOURCES:
         names = [p.name for p in build._inputs(name)]
-        assert names == [f"{name}.cu", header]
+        assert names == [f"{name}.cu", header if name in sharing
+                         else f"{name}.cuh"]
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     (tmp_path / "lone.cu").write_text("extern \"C\" int f() { return 0; }\n")
@@ -690,5 +693,6 @@ def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
     with open(tmp_path / header, "a") as f:
         f.write("// edited\n")
     after = {n: build._target(n) for n in build.SOURCES + ("lone",)}
-    assert all(before[n] != after[n] for n in build.SOURCES)
+    assert all(before[n] != after[n] for n in sharing)
+    assert before["preprocess"] == after["preprocess"]
     assert before["lone"] == after["lone"]
