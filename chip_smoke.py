@@ -766,19 +766,20 @@ def check_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     from fusionsense_tpu_torch.render import flat_composite as FC
     from fusionsense_tpu_torch.render.composite import TileGrid
     from fusionsense_tpu_torch.render.rasterize import (
-        flat_table, gaussian_flat_normals,
+        gaussian_flat_normals, prepare, tile_table,
     )
     from fusionsense_tpu_torch.train.trainer import patched_cfg
 
     cfg = patched_cfg(tr.cfg, tile_capacity, cover_tiles)
-    rc = cfg.model.rasterize
+    rc = dataclasses.replace(cfg.model.rasterize, backend="flat")
     cam = tr.camera.index(0)
     n = tr.render_n
     with torch.no_grad():
         means, quats, scales, op, colors = (x[:n] for x in activated(tr.gaussians))
-        ft = flat_table(means, quats, scales, op, colors, cam, rc,
-                        normals=gaussian_flat_normals(quats, scales, means,
-                                                      cam.origin))
+        ft = tile_table(prepare(means, quats, scales, op, colors, cam, rc,
+                                gaussian_flat_normals(quats, scales, means,
+                                                      cam.origin), None),
+                        cam, rc)
     fb = ft.bins
     grid = TileGrid(cam.width, cam.height, rc.tile_size)
     T, P, B = grid.num_tiles, grid.pixels_per_tile, rc.pallas_chunk
@@ -925,19 +926,20 @@ def check_dense_kernels(torch, tr, tile_capacity, cover_tiles, timed):
     from fusionsense_tpu_torch.render import flat_composite as FC
     from fusionsense_tpu_torch.render.composite import TileGrid
     from fusionsense_tpu_torch.render.rasterize import (
-        dense_table, gaussian_flat_normals,
+        gaussian_flat_normals, prepare, tile_table,
     )
     from fusionsense_tpu_torch.train.trainer import patched_cfg
 
     cfg = patched_cfg(tr.cfg, tile_capacity, cover_tiles)
-    rc = cfg.model.rasterize
+    rc = dataclasses.replace(cfg.model.rasterize, backend="pallas")
     cam = tr.camera.index(0)
     n = tr.render_n
     with torch.no_grad():
         means, quats, scales, op, colors = (x[:n] for x in activated(tr.gaussians))
-        dt = dense_table(means, quats, scales, op, colors, cam, rc,
-                         normals=gaussian_flat_normals(quats, scales, means,
-                                                       cam.origin))
+        dt = tile_table(prepare(means, quats, scales, op, colors, cam, rc,
+                                gaussian_flat_normals(quats, scales, means,
+                                                      cam.origin), None),
+                        cam, rc)
     grid = TileGrid(cam.width, cam.height, rc.tile_size)
     T, P, B = grid.num_tiles, grid.pixels_per_tile, rc.pallas_chunk
     table, counts = dt.table.contiguous(), dt.counts.contiguous()
@@ -2982,14 +2984,13 @@ def nerf_path(torch, dev, counters, card, scene):
 
 def _shard_blocks_flat(torch, pre, cam, rc, n, pairs=None):
     """The flat tables of the n tile blocks of a tile-sharded mesh (the
-    sharded step's flat_local_table): (table, runs, counts, T_loc, tile_lo,
-    block-aligned pairs) each. With `pairs` (the unsharded layout's aligned
-    pair total, which bounds every block's) each block's budget holds that
-    many; no block may drop a pair."""
-    from fusionsense_tpu_torch.parallel.sharded import (
-        flat_local_table, tile_block,
-    )
+    sharded step's render/rasterize.py tile_table over its block): (table,
+    runs, counts, T_loc, tile_lo, block-aligned pairs) each. With `pairs`
+    (the unsharded layout's aligned pair total, which bounds every block's)
+    each block's budget holds that many; no block may drop a pair."""
+    from fusionsense_tpu_torch.parallel.sharded import tile_block
     from fusionsense_tpu_torch.render import flat_composite as FC
+    from fusionsense_tpu_torch.render.rasterize import tile_table
     from fusionsense_tpu_torch.render.composite import TileGrid
 
     T = TileGrid(cam.width, cam.height, rc.tile_size).num_tiles
@@ -2999,8 +3000,8 @@ def _shard_blocks_flat(torch, pre, cam, rc, n, pairs=None):
         rc_me = rc if pairs is None else dataclasses.replace(
             rc, tile_capacity=-(-pairs // t_loc))
         with torch.no_grad():
-            table, fb = flat_local_table(pre, pre.proj.valid, cam, rc_me, lo,
-                                         t_loc)
+            tt = tile_table(pre, cam, rc_me, tile_lo=lo, num_tiles_local=t_loc)
+        table, fb = tt.table, tt.bins
         if int(fb.overflow):
             raise RuntimeError(f"sharded: block {me}/{n} dropped "
                                f"{int(fb.overflow)} pairs")
@@ -3048,7 +3049,7 @@ def check_sharded_kernels(torch, cams, init, cfg):
     with torch.no_grad():
         m, q, s, o, c = activated(init)
         normals = R.gaussian_flat_normals(q, s, m, cam.origin)
-        pre = R._prepare(m, q, s, o, c, cam, rc, normals, None)
+        pre = R.prepare(m, q, s, o, c, cam, rc, normals, None)
     ((table, runs, count, _, _, pairs),) = _shard_blocks_flat(torch, pre, cam,
                                                               rc, 1)
     out_f, logt_f, _, _, _ = FC.flat_composite_fwd_cuda(table, runs, count,
@@ -3096,7 +3097,8 @@ def check_sharded_kernels(torch, cams, init, cfg):
     rd = dense_config().model.rasterize
     with torch.no_grad():
         normals = R.gaussian_flat_normals(q, s, m, cam.origin)
-        dt = R.dense_table(m, q, s, o, c, cam, rd, normals=normals)
+        dt = R.tile_table(R.prepare(m, q, s, o, c, cam, rd, normals, None),
+                          cam, rd)
     grid = TileGrid(cam.width, cam.height, rd.tile_size)
     T, P, B = grid.num_tiles, grid.pixels_per_tile, rd.pallas_chunk
     tx, ts = grid.tiles_x, rd.tile_size

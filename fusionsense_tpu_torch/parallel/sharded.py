@@ -5,10 +5,10 @@ Counterpart of fusionsense_tpu/parallel/sharded.py (shard_map there). Every
 rank holds the whole replicated store and runs this step on its own
 (data, tile, gauss) coordinates; the collectives are written out
 (parallel/comm.py):
-- "tile": a rank composites only its block of T_loc image tiles, at their
-  global tile ids (K1/K2 at tile_lo = me * T_loc, K3/K4 at tile_ids
-  me * T_loc + arange(T_loc)); the blocks all_gather into the full image
-  for the windowed losses (SSIM crosses tile borders);
+- "tile": a rank composites only its block of T_loc image tiles from
+  tile_lo = me * T_loc (render/rasterize.py render_tiles); the blocks
+  all_gather into the full image for the windowed losses (SSIM crosses
+  tile borders);
 - "gauss": a rank keeps only the Gaussians in its slice of the camera's
   log-depth range; the slices merge front to back, out = sum_g T_{<g}
   out_g and log T = sum_g log T_g, which is exact;
@@ -41,61 +41,20 @@ import torch
 
 from fusionsense_tpu_torch.config import ExperimentConfig
 from fusionsense_tpu_torch.core.cameras import Camera, pick
-from fusionsense_tpu_torch.core.transforms import apply_se3_delta
 from fusionsense_tpu_torch.device import device_vector
 from fusionsense_tpu_torch.gaussians.adc import RefineStats, accumulate_stats
-from fusionsense_tpu_torch.gaussians.store import (
-    GaussianState, activated, binary_opacity_surgery,
-)
+from fusionsense_tpu_torch.gaussians.store import binary_opacity_surgery
 from fusionsense_tpu_torch.parallel import comm
 from fusionsense_tpu_torch.parallel.mesh import AXES, Mesh
 from fusionsense_tpu_torch.render import rasterize as R
-from fusionsense_tpu_torch.render.binning import (
-    auto_expand_budget, bin_gaussians, flat_bin_gaussians,
-)
-from fusionsense_tpu_torch.render.composite import (
-    TileGrid, composite_tiles, pixel_features, tiles_to_image,
-)
-from fusionsense_tpu_torch.render.composite2 import composite2
-from fusionsense_tpu_torch.render.flat_composite import flat_composite
-from fusionsense_tpu_torch.render.project import alpha_coefficients
+from fusionsense_tpu_torch.render.composite import TileGrid
+from fusionsense_tpu_torch.render.preprocess import Prepared
 from fusionsense_tpu_torch.train.optim import DEFAULT_GROUPS, AdamState, adam_step
 from fusionsense_tpu_torch.train.trainer import (
-    TrainData, _keep_adam, camera_group, loss_terms, patched_cfg,
-    sh_band_mask,
+    TrainData, _keep_adam, camera_group, loss_terms, patched_cfg, view_inputs,
 )
 
 SHARD_AXES = ("tile", "gauss")
-
-
-class _TileSelectLocal(torch.autograd.Function):
-    """(N, W) table -> (T_loc, K, W) rows of THIS rank's tile block. The
-    backward is the landing-map gather of the rasterizer's _TileSelect,
-    restricted to the block: landing entries outside [base, base +
-    T_loc * K) gather zero here and come from the rank that owns them (the
-    psum of parameter gradients over the tile axis adds them back)."""
-
-    @staticmethod
-    def forward(ctx, table_n, idx_loc, mask_loc, landing, base):
-        ctx.save_for_backward(landing)
-        ctx.n, ctx.base, ctx.block = table_n.shape[0], base, mask_loc.shape
-        return torch.where(mask_loc[..., None], table_n[idx_loc],
-                           torch.zeros((), dtype=table_n.dtype,
-                                       device=table_n.device))
-
-    @staticmethod
-    def backward(ctx, g):
-        (landing,) = ctx.saved_tensors
-        T_loc, K = ctx.block
-        flat = g.reshape(-1, g.shape[-1])
-        loc = landing.reshape(-1).long() - ctx.base
-        ok = (loc >= 0) & (loc < T_loc * K)
-        gp = flat[torch.where(ok, loc, torch.zeros_like(loc))] * ok[:, None]
-        C = landing.shape[1]
-        return gp.reshape(ctx.n, C, -1).sum(dim=1), None, None, None, None
-
-
-_tile_select_local = _TileSelectLocal.apply
 
 
 def tile_block(num_tiles: int, n_shards: int, me: int):
@@ -106,157 +65,51 @@ def tile_block(num_tiles: int, n_shards: int, me: int):
     return T_pad, T_loc, me * T_loc
 
 
-def flat_local_table(pre, valid, camera: Camera, rcfg, tile_lo: int,
-                     num_tiles_local: int, absgrad_tap=None):
-    """The flat pair table of the tile block [tile_lo, tile_lo +
-    num_tiles_local): pre is the rasterizer's Prepared (its proj.valid
-    already restricted to the rank's depth slice), valid that mask. Blocks
-    are laid out over the local tiles; the landing map is local (-1 for
-    other blocks' pairs). Returns (table (PB, 8 + Cpad), FlatBins)."""
+def _depth_slice(pre: Prepared, mesh: Mesh) -> Prepared:
+    """pre with only this rank's slice of the camera's log-depth range live
+    (its valid flags and, for binning, its radii): front-to-back order
+    across slices is exact, so out = sum_g T_{<g} out_g."""
     proj = pre.proj
-    B = rcfg.pallas_chunk
-    PB = -(-rcfg.tile_capacity * num_tiles_local // B) * B
-    n = pre.mean2d.shape[0]
-    fb = flat_bin_gaussians(
-        proj.mean2d.detach(),
-        torch.where(valid, proj.radius, torch.zeros_like(proj.radius)).detach(),
-        proj.depth.detach(), width=camera.width, height=camera.height,
-        tile_size=rcfg.tile_size, pair_budget=PB,
-        max_tiles_per_gaussian=rcfg.max_tiles_per_gaussian, block=B,
-        tile_lo=tile_lo, num_tiles_local=num_tiles_local,
-        compute_landing=rcfg.flat_grad_transpose != "scatter",
-        expand_budget=auto_expand_budget(PB, n, rcfg.max_tiles_per_gaussian,
-                                         B))
-    table_n, dead = R._gaussian_table(pre, absgrad_tap)
-    if fb.landing is None:
-        sel = R._FlatSelectScatter.apply(table_n, fb.gauss_ids, fb.valid)
-    else:
-        sel = R._TileSelect.apply(table_n, fb.gauss_ids, fb.valid, fb.landing)
-    table = sel + torch.where(fb.valid[:, None], torch.zeros_like(dead), dead)
-    return table, fb
-
-
-def _render_local_tiles(gaussians: GaussianState, camera: Camera, cam_idx,
-                        cfg: ExperimentConfig, tap, step, mesh: Mesh,
-                        cam_delta=None, render_n=None, abs_tap=None):
-    """Rasterize only this rank's tile block, restricted to its depth slice
-    of the Gaussians when the gauss axis has more than one member. Returns
-    (local (T_loc, P, C + 1), last channel alpha; aux). render_n is the
-    alive-first prefix the step renders, as in compute_losses."""
-    mc = cfg.model
-    rcfg = mc.rasterize
-    means, quats, scales, op, colors = activated(gaussians)
-    colors = colors * sh_band_mask(mc.sh_degree, step, mc.sh_degree_interval,
-                                   colors.device)[None, :, None]
-    if render_n is not None and render_n < gaussians.capacity:
-        means, quats, scales, op, colors = (
-            means[:render_n], quats[:render_n], scales[:render_n],
-            op[:render_n], colors[:render_n])
-        tap = tap[:render_n]
-        if abs_tap is not None:
-            abs_tap = abs_tap[:render_n]
-    dev = means.device
-    if abs_tap is None:
-        abs_tap = torch.zeros((means.shape[0], 2), device=dev)
-    cam_i = camera.index(cam_idx)
-    if cam_delta is not None:
-        # the reference camera optimizer applied per forward
-        cam_i = cam_i.replace(viewmat=apply_se3_delta(cam_i.viewmat, cam_delta))
-    grid = TileGrid(width=camera.width, height=camera.height,
-                    tile_size=rcfg.tile_size)
-    T = grid.num_tiles
-    T_pad, T_loc, tile_lo = tile_block(T, mesh.shape["tile"],
-                                       mesh.coords["tile"])
-
-    normals_g = R.gaussian_flat_normals(quats, scales, means, cam_i.origin)
-    pre = R._prepare(means, quats, scales, op, colors, cam_i, rcfg, normals_g,
-                     tap)
-    proj = pre.proj
-    valid = proj.valid
-    n_gauss = mesh.shape["gauss"]
-    if n_gauss > 1:
-        # this rank's slice of the camera's log-depth range: front-to-back
-        # order across slices is exact, so out = sum_g T_{<g} out_g
-        gme = mesh.coords["gauss"]
-        big = torch.full((), 3.4e38, device=dev)
-        logd = torch.log(torch.clamp_min(proj.depth, 1e-12))
-        lo = torch.min(torch.where(valid, logd, big))
-        hi = torch.max(torch.where(valid, logd, -big))
-        span = torch.clamp_min(hi - lo, 1e-9)
-        f0 = lo + span * float(gme) / n_gauss
-        f1 = lo + span * float(gme + 1) / n_gauss
-        in_slice = (logd >= f0) & ((logd < f1) | (gme == n_gauss - 1))
-        valid = valid & in_slice
-        pre = pre._replace(proj=proj._replace(valid=valid))
-    nchan = pre.channels.shape[-1]
-    aux = {"radius": proj.radius, "grid": grid, "T": T, "cam_i": cam_i,
-           "normals_g": normals_g}
-
-    if rcfg.backend == "flat":
-        table, fb = flat_local_table(pre, valid, camera, rcfg, tile_lo, T_loc,
-                                     abs_tap)
-        out_loc, alpha_loc = flat_composite(
-            table, fb.blk_tile, fb.blk_count, T_loc, grid.tiles_x,
-            rcfg.tile_size, rcfg.pallas_chunk, rcfg.blend_bf16,
-            tile_lo=tile_lo)
-        local = torch.cat([out_loc[..., :nchan], alpha_loc[..., None]], -1)
-        aux.update(overflow=fb.overflow, trunc_by_win=fb.trunc_by_win,
-                   pairs_used=fb.used)
-        return local, aux
-
-    bins = bin_gaussians(
-        proj.mean2d.detach(),
-        torch.where(valid, proj.radius, torch.zeros_like(proj.radius)).detach(),
-        proj.depth.detach(), width=camera.width, height=camera.height,
-        tile_size=rcfg.tile_size, tile_capacity=rcfg.tile_capacity,
-        max_tiles_per_gaussian=rcfg.max_tiles_per_gaussian)
-
-    def local_block(x, fill):
-        pad = torch.full((T_pad - T,) + x.shape[1:], fill, dtype=x.dtype,
-                         device=x.device)
-        return torch.cat([x, pad], 0)[tile_lo:tile_lo + T_loc]
-
-    idx_loc = local_block(torch.clamp_min(bins.indices, 0).long(), 0)
-    mask_loc = local_block(bins.mask, False)
-    if rcfg.backend == "pallas":
-        K = bins.indices.shape[1]
-        table_n, dead = R._gaussian_table(pre, abs_tap)
-        sel = _tile_select_local(table_n, idx_loc, mask_loc, bins.landing,
-                                 tile_lo * K)
-        table = sel + torch.where(mask_loc[..., None], torch.zeros_like(dead),
-                                  dead)
-        counts = mask_loc.sum(dim=-1, dtype=torch.int32)
-        tile_ids = tile_lo + torch.arange(T_loc, dtype=torch.int32, device=dev)
-        out_loc, alpha_loc = composite2(table, counts, tile_ids, grid.tiles_x,
-                                        rcfg.tile_size, rcfg.pallas_chunk,
-                                        rcfg.blend_bf16)
-        out_loc = out_loc[..., :nchan]
-    else:
-        coeff = alpha_coefficients(pre.mean2d, proj.conic, pre.op, valid)
-        dead = torch.zeros((6,), device=dev)
-        dead[5].fill_(-1e10)
-        m = mask_loc[..., None]
-        tile_coeff = torch.where(m, coeff[idx_loc], dead)
-        tile_chan = torch.where(m, pre.channels[idx_loc],
-                                torch.zeros((), device=dev))
-        feats = local_block(pixel_features(grid, dev), 0.0)
-        out_loc, alpha_loc = composite_tiles(feats, tile_coeff, tile_chan,
-                                             tile_chunk=rcfg.tile_chunk)
-    local = torch.cat([out_loc, alpha_loc[..., None]], -1)
-    aux.update(overflow=bins.overflow, trunc_by_win=bins.trunc_by_win,
-               pairs_used=torch.zeros((), dtype=torch.int32, device=dev))
-    return local, aux
+    n_gauss, gme = mesh.shape["gauss"], mesh.coords["gauss"]
+    big = torch.full((), 3.4e38, device=proj.depth.device)
+    logd = torch.log(torch.clamp_min(proj.depth, 1e-12))
+    lo = torch.min(torch.where(proj.valid, logd, big))
+    hi = torch.max(torch.where(proj.valid, logd, -big))
+    span = torch.clamp_min(hi - lo, 1e-9)
+    f0 = lo + span * float(gme) / n_gauss
+    f1 = lo + span * float(gme + 1) / n_gauss
+    in_slice = (logd >= f0) & ((logd < f1) | (gme == n_gauss - 1))
+    valid = proj.valid & in_slice
+    radius = torch.where(valid, proj.radius, torch.zeros_like(proj.radius))
+    return pre._replace(proj=proj._replace(valid=valid, radius=radius))
 
 
 def _sharded_losses(gaussians, camera, data: TrainData, cam_idx, step,
                     cfg: ExperimentConfig, tap, mesh: Mesh, cam_delta=None,
                     render_n=None, abs_tap=None):
     """This rank's share of the camera's loss: true loss / (n_tile *
-    n_gauss), and (radius, psnr, overflow, trunc_by_win, pairs_used)."""
-    local, aux = _render_local_tiles(gaussians, camera, cam_idx, cfg, tap,
-                                     step, mesh, cam_delta=cam_delta,
-                                     render_n=render_n, abs_tap=abs_tap)
+    n_gauss), and (radius, psnr, overflow, trunc_by_win, pairs_used). The
+    rank renders only its tile block, restricted to its depth slice of the
+    Gaussians when the gauss axis has more than one member."""
+    mc = cfg.model
+    rcfg = mc.rasterize
+    v = view_inputs(gaussians, camera, cam_idx, step, cfg, tap, abs_tap,
+                    render_n, cam_delta)
+    pre = R.prepare(v.means, v.quats, v.scales, v.op, v.colors, v.camera,
+                    rcfg, v.normals, v.tap)
+    radius = pre.proj.radius
     n_gauss = mesh.shape["gauss"]
+    if n_gauss > 1:
+        pre = _depth_slice(pre, mesh)
+    grid = TileGrid(camera.width, camera.height, rcfg.tile_size)
+    _, T_loc, tile_lo = tile_block(grid.num_tiles, mesh.shape["tile"],
+                                   mesh.coords["tile"])
+    r = R.render_tiles(pre, v.camera, rcfg, tile_lo=tile_lo,
+                       num_tiles_local=T_loc, absgrad_tap=v.absgrad_tap)
+    dev = radius.device
+    i0 = torch.zeros((), dtype=torch.int32, device=dev)
+    pairs_used = i0 if r.pairs_used is None else r.pairs_used
+    local = torch.cat([r.out, r.alpha[..., None]], -1)
     if n_gauss > 1:
         # merge depth slices front to back: slice g's tile block attenuated
         # by the product of the nearer slices' transmittances
@@ -268,35 +121,24 @@ def _sharded_losses(gaussians, camera, data: TrainData, cam_idx, step,
         out = torch.sum(t_excl[..., None] * outs, dim=0)
         alpha = 1.0 - torch.exp(torch.sum(logt, dim=0))
         local = torch.cat([out, alpha[..., None]], dim=-1)
-    # the full image over the tile axis (gradients flow back as blocks)
-    full = comm.all_gather(mesh, local, "tile", tiled=True)
-    grid: TileGrid = aux["grid"]
-    img = tiles_to_image(full[:aux["T"]], grid)
-    rgb, depth, normal, alpha = (img[..., :3], img[..., 3], img[..., 4:7],
-                                 img[..., 7])
+    # the full image over the tile axis (gradients flow back as blocks);
     # expected depth AFTER the depth-slice merge: the slice identity holds
     # for the raw accumulated channels only
-    depth = R.expected_depth(depth, alpha)
-    mc = cfg.model
-    dev = rgb.device
-    rgb = rgb + (1.0 - alpha)[..., None] * device_vector(mc.background, dev)
-    i0 = torch.zeros((), dtype=torch.int32, device=dev)
+    full = comm.all_gather(mesh, local, "tile", tiled=True)[:grid.num_tiles]
     out = R.RenderOutputs(
-        rgb=rgb, depth=depth, normal=normal, alpha=alpha,
-        mean2d=torch.zeros((1, 2), device=dev), radius=aux["radius"],
-        overflow=aux["overflow"], truncated=i0,
+        **R.image_outputs(full[..., :-1], full[..., -1], grid,
+                          device_vector(mc.background, dev)),
+        mean2d=torch.zeros((1, 2), device=dev), radius=radius,
+        overflow=r.bins.overflow, truncated=i0,
         trunc_by_win=torch.zeros((5,), dtype=torch.int32, device=dev),
-        pairs_used=aux["pairs_used"])
+        pairs_used=pairs_used)
     # the FULL loss stack, as the single-device step's (train/trainer.py)
-    alive_r = (gaussians.alive[:render_n]
-               if render_n is not None and render_n < gaussians.capacity
-               else gaussians.alive)
-    total, (_, laux) = loss_terms(out, aux["normals_g"], gaussians,
-                                  aux["cam_i"], data, cam_idx, step, cfg,
-                                  alive_r, render_n=render_n)
+    total, (_, laux) = loss_terms(out, v.normals, gaussians, v.camera, data,
+                                  cam_idx, step, cfg, v.alive,
+                                  render_n=render_n)
     n_shards = mesh.size_of(SHARD_AXES)
-    return total / n_shards, (aux["radius"], laux["psnr"], aux["overflow"],
-                              aux["trunc_by_win"], aux["pairs_used"])
+    return total / n_shards, (radius, laux["psnr"], r.bins.overflow,
+                              r.bins.trunc_by_win, pairs_used)
 
 
 # --------------------------------------------------------------- ZeRO-1 ----

@@ -11,6 +11,11 @@ expected depth + world-space normal + alpha. Backends:
 - "flat": block-aligned segmented pairs, one (PB, 8 + C) table gather,
   kernels K1/K2 (render/flat_composite.py).
 
+`rasterize` is `prepare` (the per-Gaussian preprocess), `render_tiles`
+over the whole tile grid (`tile_table`: the backend's layout, table and
+dead rows, then its compositor) and `image_outputs`. The sharded step
+(parallel/sharded.py) calls `render_tiles` for its block of tiles.
+
 Gradients reach means/quats/scales/opacities/colors/normals through
 autograd; the `mean2d_tap` and `absgrad_tap` zero inputs surface the
 per-Gaussian signed and (pallas, flat) absolute screen-position gradients
@@ -19,7 +24,8 @@ per-Gaussian signed and (pallas, flat) absolute screen-position gradients
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -27,7 +33,7 @@ from fusionsense_tpu_torch.core.cameras import Camera
 from fusionsense_tpu_torch.core.transforms import normalize, quat_to_rotmat
 from fusionsense_tpu_torch.device import check_on, resolve_device
 from fusionsense_tpu_torch.render.binning import (
-    auto_expand_budget, bin_gaussians, flat_bin_gaussians,
+    FlatBins, TileBins, auto_expand_budget, bin_gaussians, flat_bin_gaussians,
 )
 from fusionsense_tpu_torch.render.composite import (
     TileGrid, composite_tiles, pixel_features, tiles_to_image,
@@ -153,14 +159,8 @@ class _FlatSelectScatter(torch.autograd.Function):
         return acc[:n], None, None
 
 
-def pair_budget(cfg: RasterizeConfig, grid: TileGrid) -> int:
-    """Flat pair budget: tile_capacity pairs per tile, block-rounded."""
-    B = cfg.pallas_chunk
-    return -(-cfg.tile_capacity * grid.num_tiles // B) * B
-
-
-def _prepare(means, quats, scales, opacities, colors, camera, cfg, normals,
-             mean2d_tap) -> Prepared:
+def prepare(means, quats, scales, opacities, colors, camera, cfg, normals,
+            mean2d_tap) -> Prepared:
     """Projection and the per-Gaussian blended channels, for every backend:
     render/preprocess.py (its kernel pair for CUDA tensors)."""
     with span("fs.project"):
@@ -168,9 +168,16 @@ def _prepare(means, quats, scales, opacities, colors, camera, cfg, normals,
                           cfg, normals, mean2d_tap)
 
 
+def _dead_row(width: int, device) -> torch.Tensor:
+    """A table row no pixel sees: log_op (column 5) -1e10, else 0."""
+    dead = torch.zeros((width,), device=device)
+    dead[5].fill_(-1e10)   # a fill, not a copy from the host
+    return dead
+
+
 def _gaussian_table(pre: Prepared, absgrad_tap: Optional[torch.Tensor]):
     """(N, 8 + Cpad) rows [mx, my, ca, cb, cc, log_op, abs_tap_x, abs_tap_y,
-    chan..., pad] and the dead row (log_op = -1e10, else 0)."""
+    chan..., pad] and the dead row."""
     N = pre.mean2d.shape[0]
     dev = pre.mean2d.device
     nchan = pre.channels.shape[-1]
@@ -185,67 +192,51 @@ def _gaussian_table(pre: Prepared, absgrad_tap: Optional[torch.Tensor]):
     if pad_c:
         cols.append(torch.zeros((N, pad_c), device=dev))
     table_n = torch.cat(cols, dim=-1)
-    dead = torch.zeros((table_n.shape[-1],), device=dev)
-    dead[5].fill_(-1e10)   # a fill, not a copy from the host
-    return table_n, dead
+    return table_n, _dead_row(table_n.shape[-1], dev)
 
 
-class FlatTable(NamedTuple):
-    """What K1 composites for one camera, before compositing."""
-
-    table: torch.Tensor      # (PB, 8 + Cpad) flat pair rows, dead = log_op -1e10
-    bins: object             # FlatBins of the layout
-    proj: object             # Projected
-    nchan: int               # channels before padding
+def _with_dead_rows(sel: torch.Tensor, live: torch.Tensor,
+                    dead: torch.Tensor) -> torch.Tensor:
+    """Gathered pair rows (0 where not `live`) with the dead row there."""
+    return sel + torch.where(live[..., None], torch.zeros_like(dead), dead)
 
 
-def flat_table(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
-               opacities: torch.Tensor, colors: torch.Tensor, camera: Camera,
-               cfg: RasterizeConfig, *, normals: Optional[torch.Tensor] = None,
-               mean2d_tap: Optional[torch.Tensor] = None,
-               absgrad_tap: Optional[torch.Tensor] = None,
-               bins=None) -> FlatTable:
-    """Project, bin (unless `bins` is given) and gather the flat pair table
-    [mx, my, ca, cb, cc, log_op, abs_tap_x, abs_tap_y, chan..., pad]."""
-    N = means.shape[0]
-    pre = _prepare(means, quats, scales, opacities, colors, camera, cfg,
-                   normals, mean2d_tap)
-    proj = pre.proj
+def _block_rows(x: torch.Tensor, tile_lo: int, n: int, fill) -> torch.Tensor:
+    """Rows [tile_lo, tile_lo + n) of a per-tile array, `fill` past its end."""
+    short = tile_lo + n - x.shape[0]
+    if short > 0:
+        x = torch.cat([x, torch.full((short,) + x.shape[1:], fill,
+                                     dtype=x.dtype, device=x.device)])
+    return x[tile_lo:tile_lo + n]
+
+
+def flat_layout(proj, camera: Camera, cfg: RasterizeConfig, *,
+                tile_lo: int = 0, num_tiles_local: Optional[int] = None,
+                n: Optional[int] = None) -> FlatBins:
+    """The flat backend's layout of the tiles [tile_lo, tile_lo +
+    num_tiles_local) (the whole grid by default): a pair budget of
+    tile_capacity pairs per tile of the block, block-rounded; the landing
+    map unless flat_grad_transpose is "scatter"; the compact enumeration
+    when its expand budget is below n x the cover window's slots (n:
+    proj's rows, unless given: the bin cache weighs it against the
+    configured capacity, as the JAX trainer does)."""
+    T = (TileGrid(camera.width, camera.height, cfg.tile_size).num_tiles
+         if num_tiles_local is None else num_tiles_local)
     B = cfg.pallas_chunk
-    PB = pair_budget(cfg, TileGrid(camera.width, camera.height, cfg.tile_size))
-    if bins is not None:
-        fb = bins
-    else:
-        with span("fs.bin"):
-            fb = flat_bin_gaussians(
-                proj.mean2d.detach(), proj.radius.detach(),
-                proj.depth.detach(), width=camera.width, height=camera.height,
-                tile_size=cfg.tile_size, pair_budget=PB,
-                max_tiles_per_gaussian=cfg.max_tiles_per_gaussian, block=B,
-                compute_landing=cfg.flat_grad_transpose != "scatter",
-                expand_budget=auto_expand_budget(
-                    PB, N, cfg.max_tiles_per_gaussian, B))
-    table_n, dead = _gaussian_table(pre, absgrad_tap)
-    if cfg.flat_grad_transpose == "scatter" or fb.landing is None:
-        sel = _FlatSelectScatter.apply(table_n, fb.gauss_ids, fb.valid)
-    else:
-        sel = _TileSelect.apply(table_n, fb.gauss_ids, fb.valid, fb.landing)
-    table = sel + torch.where(fb.valid[:, None], torch.zeros_like(dead), dead)
-    return FlatTable(table=table, bins=fb, proj=proj,
-                     nchan=pre.channels.shape[-1])
+    PB = -(-cfg.tile_capacity * T // B) * B
+    N = proj.mean2d.shape[0] if n is None else n
+    with span("fs.bin"):
+        return flat_bin_gaussians(
+            proj.mean2d.detach(), proj.radius.detach(), proj.depth.detach(),
+            width=camera.width, height=camera.height, tile_size=cfg.tile_size,
+            pair_budget=PB, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+            block=B, tile_lo=tile_lo, num_tiles_local=num_tiles_local,
+            compute_landing=cfg.flat_grad_transpose != "scatter",
+            expand_budget=auto_expand_budget(
+                PB, N, cfg.max_tiles_per_gaussian, B))
 
 
-class DenseTable(NamedTuple):
-    """What K3 composites for one camera, before compositing."""
-
-    table: torch.Tensor      # (T, K, 8 + Cpad) tile rows, dead = log_op -1e10
-    counts: torch.Tensor     # (T,) int32 live slots per tile
-    bins: object             # TileBins of the layout
-    proj: object             # Projected
-    nchan: int               # channels before padding
-
-
-def _dense_bins(proj, camera: Camera, cfg: RasterizeConfig):
+def _dense_bins(proj, camera: Camera, cfg: RasterizeConfig) -> TileBins:
     with span("fs.bin"):
         return bin_gaussians(
             proj.mean2d.detach(), proj.radius.detach(), proj.depth.detach(),
@@ -254,46 +245,135 @@ def _dense_bins(proj, camera: Camera, cfg: RasterizeConfig):
             max_tiles_per_gaussian=cfg.max_tiles_per_gaussian)
 
 
-def dense_table(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
-                opacities: torch.Tensor, colors: torch.Tensor, camera: Camera,
-                cfg: RasterizeConfig, *, normals: Optional[torch.Tensor] = None,
-                mean2d_tap: Optional[torch.Tensor] = None,
-                absgrad_tap: Optional[torch.Tensor] = None) -> DenseTable:
-    """Project, bin densely and gather the (T, K, 8 + Cpad) tile table of the
-    `pallas` backend: one gather, whose backward is a landing-map gather."""
-    pre = _prepare(means, quats, scales, opacities, colors, camera, cfg,
-                   normals, mean2d_tap)
+class TileTable(NamedTuple):
+    """One tile block's pairs as its backend's compositor takes them."""
+
+    table: torch.Tensor      # flat (PB, 8 + Cpad), pallas (T_loc, K, 8 + Cpad)
+    #                          pair rows; jax (T_loc, K, 6) alpha coefficients;
+    #                          dead slots have log_op -1e10
+    bins: object             # FlatBins of the block, or TileBins of the grid
+    counts: Optional[torch.Tensor]  # pallas: (T_loc,) int32 live slots
+    nchan: int               # channels before padding
+    composite: Callable      # () -> (out (T_loc, P, >= nchan), alpha (T_loc, P))
+
+
+def tile_table(pre: Prepared, camera: Camera, cfg: RasterizeConfig, *,
+               tile_lo: int = 0, num_tiles_local: Optional[int] = None,
+               absgrad_tap: Optional[torch.Tensor] = None,
+               bins=None) -> TileTable:
+    """The table of the tiles [tile_lo, tile_lo + num_tiles_local) (the
+    whole grid by default) in cfg.backend's layout, with that backend's
+    compositor bound to it:
+
+    - "flat": the block's flat layout, one (PB, 8 + Cpad) gather, K1/K2;
+    - "pallas": the grid's dense bins, the block's (T_loc, K, 8 + Cpad)
+      gather, K3/K4 at the block's global tile ids;
+    - "jax": the block's gathered quadratic coefficients and channels,
+      composite_tiles.
+
+    A gather's backward reads the landing map (the flat one unless
+    flat_grad_transpose is "scatter", which scatters instead); a block's
+    dense landing map keeps only its own slots, the other blocks' pairs
+    reaching the parameters through theirs. `bins` may hold the whole
+    grid's FlatBins (the trainer's bin cache)."""
+    grid = TileGrid(camera.width, camera.height, cfg.tile_size)
+    T_loc = grid.num_tiles if num_tiles_local is None else num_tiles_local
+    whole = tile_lo == 0 and T_loc == grid.num_tiles
+    nchan = pre.channels.shape[-1]
+    geo = (grid.tiles_x, cfg.tile_size, cfg.pallas_chunk, cfg.blend_bf16)
+    if cfg.backend == "flat":
+        fb = bins if bins is not None else flat_layout(
+            pre.proj, camera, cfg, tile_lo=tile_lo,
+            num_tiles_local=num_tiles_local)
+        table_n, dead = _gaussian_table(pre, absgrad_tap)
+        if fb.landing is None:
+            sel = _FlatSelectScatter.apply(table_n, fb.gauss_ids, fb.valid)
+        else:
+            sel = _TileSelect.apply(table_n, fb.gauss_ids, fb.valid,
+                                    fb.landing)
+        table = _with_dead_rows(sel, fb.valid, dead)
+        return TileTable(table, fb, None, nchan, functools.partial(
+            flat_composite, table, fb.blk_tile, fb.blk_count, T_loc, *geo,
+            tile_lo=tile_lo))
+
     tb = _dense_bins(pre.proj, camera, cfg)
-    table_n, dead = _gaussian_table(pre, absgrad_tap)
-    sel = _TileSelect.apply(table_n, torch.clamp_min(tb.indices, 0), tb.mask,
-                            tb.landing)
-    table = sel + torch.where(tb.mask[..., None], torch.zeros_like(dead), dead)
-    counts = tb.mask.sum(dim=-1, dtype=torch.int32)
-    return DenseTable(table=table, counts=counts, bins=tb, proj=pre.proj,
-                      nchan=pre.channels.shape[-1])
+    idx, mask = torch.clamp_min(tb.indices, 0), tb.mask
+    if not whole:
+        idx = _block_rows(idx, tile_lo, T_loc, 0)
+        mask = _block_rows(mask, tile_lo, T_loc, False)
+    if cfg.backend == "pallas":
+        landing = tb.landing
+        if not whole:
+            K = tb.indices.shape[1]
+            loc = landing - tile_lo * K
+            landing = torch.where((loc >= 0) & (loc < T_loc * K), loc,
+                                  torch.full_like(loc, -1))
+        table_n, dead = _gaussian_table(pre, absgrad_tap)
+        table = _with_dead_rows(_TileSelect.apply(table_n, idx, mask, landing),
+                                mask, dead)
+        counts = mask.sum(dim=-1, dtype=torch.int32)
+        tile_ids = torch.arange(T_loc, dtype=torch.int32, device=table.device)
+        if tile_lo:
+            tile_ids = tile_ids + tile_lo
+        return TileTable(table, tb, counts, nchan, functools.partial(
+            composite2, table, counts, tile_ids, *geo))
 
-
-def _xla_composite(means, quats, scales, opacities, colors, camera, cfg,
-                   normals, mean2d_tap):
-    """The `jax` backend: gathered quadratic coefficients and channels into
-    composite_tiles. Returns (out (T, P, C), alpha (T, P), bins, proj)."""
-    pre = _prepare(means, quats, scales, opacities, colors, camera, cfg,
-                   normals, mean2d_tap)
-    proj = pre.proj
-    tb = _dense_bins(proj, camera, cfg)
-    idx = torch.clamp_min(tb.indices, 0).long()
-    m = tb.mask[..., None]
+    idx = idx.long()
+    m = mask[..., None]
     tile_chan = torch.where(m, pre.channels[idx], torch.zeros((), device=m.device))
-    coeff = alpha_coefficients(pre.mean2d, proj.conic, pre.op, proj.valid)
-    dead = torch.zeros((6,), device=m.device)
-    dead[5].fill_(-1e10)   # a fill, not a copy from the host
-    tile_coeff = torch.where(m, coeff[idx], dead)
-    feats = pixel_features(TileGrid(camera.width, camera.height, cfg.tile_size),
-                           m.device)
+    coeff = alpha_coefficients(pre.mean2d, pre.proj.conic, pre.op,
+                               pre.proj.valid)
+    tile_coeff = torch.where(m, coeff[idx], _dead_row(6, m.device))
+    feats = pixel_features(grid, m.device)
+    if not whole:
+        feats = _block_rows(feats, tile_lo, T_loc, 0.0)
+    return TileTable(tile_coeff, tb, None, nchan, functools.partial(
+        composite_tiles, feats, tile_coeff, tile_chan,
+        tile_chunk=cfg.tile_chunk))
+
+
+class TileRender(NamedTuple):
+    """One tile block, composited."""
+
+    out: torch.Tensor        # (T_loc, P, C) channels [rgb, depth_acc, normal]
+    alpha: torch.Tensor      # (T_loc, P) accumulation
+    bins: object             # FlatBins or TileBins: overflow, truncated,
+    #                          trunc_by_win
+    pairs_used: Optional[torch.Tensor]  # flat: block-aligned live pairs;
+    #                                     None for the dense backends
+
+
+def render_tiles(pre: Prepared, camera: Camera, cfg: RasterizeConfig, *,
+                 tile_lo: int = 0, num_tiles_local: Optional[int] = None,
+                 absgrad_tap: Optional[torch.Tensor] = None,
+                 bins=None) -> TileRender:
+    """Composite the tiles [tile_lo, tile_lo + num_tiles_local) (the whole
+    grid by default) of one camera from its Prepared (tile_table)."""
+    tt = tile_table(pre, camera, cfg, tile_lo=tile_lo,
+                    num_tiles_local=num_tiles_local, absgrad_tap=absgrad_tap,
+                    bins=bins)
     with span("fs.composite"):
-        out, alpha = composite_tiles(feats, tile_coeff, tile_chan,
-                                     tile_chunk=cfg.tile_chunk)
-    return out, alpha, tb, proj
+        out, alpha = tt.composite()
+    if out.shape[-1] > tt.nchan:
+        out = out[..., :tt.nchan]
+    return TileRender(out, alpha, tt.bins,
+                      tt.bins.used if isinstance(tt.bins, FlatBins) else None)
+
+
+def image_outputs(out_tiled: torch.Tensor, alpha_tiled: torch.Tensor,
+                  grid: TileGrid,
+                  background: Optional[torch.Tensor] = None) -> dict:
+    """RenderOutputs' rgb, depth, normal and alpha from the grid's tiled
+    channels and alpha: the expected depth, and the background under what
+    alpha leaves."""
+    img = tiles_to_image(out_tiled, grid)
+    alpha = tiles_to_image(alpha_tiled, grid)
+    rgb = img[..., 0:3]
+    depth = expected_depth(img[..., 3], alpha)
+    normal = img[..., 4:7]
+    if background is not None:
+        rgb = rgb + (1.0 - alpha)[..., None] * background
+    return dict(rgb=rgb, depth=depth, normal=normal, alpha=alpha)
 
 
 def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
@@ -328,41 +408,12 @@ def rasterize(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor,
             trunc_by_win=torch.zeros((5,), dtype=torch.int32, device=dev),
             pairs_used=i0)
 
-    kw = dict(normals=normals, mean2d_tap=mean2d_tap)
-    if cfg.backend == "flat":
-        ft = flat_table(means, quats, scales, opacities, colors, camera, cfg,
-                        absgrad_tap=absgrad_tap, bins=bins, **kw)
-        fb, proj = ft.bins, ft.proj
-        with span("fs.composite"):
-            out_tiled, alpha_tiled = flat_composite(
-                ft.table, fb.blk_tile, fb.blk_count, grid.num_tiles,
-                grid.tiles_x, cfg.tile_size, cfg.pallas_chunk, cfg.blend_bf16)
-        out_tiled = out_tiled[..., :ft.nchan]
-        pairs_used = fb.used
-    elif cfg.backend == "pallas":
-        dt = dense_table(means, quats, scales, opacities, colors, camera, cfg,
-                         absgrad_tap=absgrad_tap, **kw)
-        fb, proj = dt.bins, dt.proj
-        with span("fs.composite"):
-            out_tiled, alpha_tiled = composite2(
-                dt.table, dt.counts,
-                torch.arange(grid.num_tiles, dtype=torch.int32, device=dev),
-                grid.tiles_x, cfg.tile_size, cfg.pallas_chunk, cfg.blend_bf16)
-        out_tiled = out_tiled[..., :dt.nchan]
-        pairs_used = i0
-    else:
-        out_tiled, alpha_tiled, fb, proj = _xla_composite(
-            means, quats, scales, opacities, colors, camera, cfg, **kw)
-        pairs_used = i0
-
-    img = tiles_to_image(out_tiled, grid)
-    alpha = tiles_to_image(alpha_tiled, grid)
-    rgb = img[..., 0:3]
-    depth = expected_depth(img[..., 3], alpha)
-    normal = img[..., 4:7]
-    if background is not None:
-        rgb = rgb + (1.0 - alpha)[..., None] * background
-    return RenderOutputs(rgb=rgb, depth=depth, normal=normal, alpha=alpha,
-                         mean2d=proj.mean2d, radius=proj.radius,
-                         overflow=fb.overflow, truncated=fb.truncated,
-                         trunc_by_win=fb.trunc_by_win, pairs_used=pairs_used)
+    pre = prepare(means, quats, scales, opacities, colors, camera, cfg,
+                  normals, mean2d_tap)
+    r = render_tiles(pre, camera, cfg, absgrad_tap=absgrad_tap, bins=bins)
+    return RenderOutputs(
+        **image_outputs(r.out, r.alpha, grid, background),
+        mean2d=pre.proj.mean2d, radius=pre.proj.radius,
+        overflow=r.bins.overflow, truncated=r.bins.truncated,
+        trunc_by_win=r.bins.trunc_by_win,
+        pairs_used=i0 if r.pairs_used is None else r.pairs_used)

@@ -31,7 +31,7 @@ import dataclasses
 import functools
 import math
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,10 +49,7 @@ from fusionsense_tpu_torch.gaussians.store import (
     GaussianState, activated, binary_opacity_surgery, surgery_due,
 )
 from fusionsense_tpu_torch.render import rasterize as R
-from fusionsense_tpu_torch.render.binning import (
-    FlatBins, auto_expand_budget, flat_bin_gaussians,
-)
-from fusionsense_tpu_torch.render.composite import TileGrid
+from fusionsense_tpu_torch.render.binning import FlatBins
 from fusionsense_tpu_torch.render.project import project_gaussians
 from fusionsense_tpu_torch.train import losses as L
 from fusionsense_tpu_torch.train.optim import (
@@ -164,43 +161,75 @@ class StepSchedule:
             generator=generator)
 
 
-def compute_losses(gaussians: GaussianState, camera: Camera, data: TrainData,
-                   cam_idx: int, step: Optional[int], cfg: ExperimentConfig,
-                   tap: torch.Tensor, absgrad_tap: Optional[torch.Tensor] = None,
-                   render_n: Optional[int] = None, bins=None,
-                   cam_delta: Optional[torch.Tensor] = None,
-                   inputs: Optional[StepInputs] = None):
-    """Forward + composite DN-Splatter loss for one camera. render_n bounds
-    the rasterized alive-first prefix; cam_delta (6,) is the view's SE3 pose
-    correction (camera optimisation), applied to its viewmat; `inputs`
-    replaces what the host step gives (StepInputs; `step` None then)."""
+class ViewInputs(NamedTuple):
+    """One camera's rendering inputs: the activated parameters of the
+    rendered alive-first prefix, the SH bands above the active one zeroed."""
+
+    means: torch.Tensor
+    quats: torch.Tensor
+    scales: torch.Tensor
+    op: torch.Tensor
+    colors: torch.Tensor
+    alive: torch.Tensor
+    tap: torch.Tensor
+    absgrad_tap: Optional[torch.Tensor]
+    camera: Camera               # the view, its pose delta applied
+    normals: torch.Tensor        # (n, 3) flat normals facing the view
+
+
+def view_inputs(gaussians: GaussianState, camera: Camera, cam_idx, step,
+                cfg: ExperimentConfig, tap: torch.Tensor,
+                absgrad_tap: Optional[torch.Tensor] = None,
+                render_n: Optional[int] = None,
+                cam_delta: Optional[torch.Tensor] = None,
+                inputs: Optional[StepInputs] = None) -> ViewInputs:
+    """What the single-device and the sharded step render of view cam_idx:
+    render_n bounds the alive-first prefix, cam_delta (6,) is the view's
+    SE3 pose correction (camera optimisation), applied to its viewmat."""
     mc = cfg.model
     means, quats, scales, op, colors = activated(gaussians)
     colors = colors * sh_band_mask(
         mc.sh_degree, step, mc.sh_degree_interval, colors.device,
         active=None if inputs is None else inputs.sh_active)[None, :, None]
-    alive_r = gaussians.alive
+    alive = gaussians.alive
     if render_n is not None and render_n < gaussians.capacity:
         means, quats, scales, op, colors = (
             means[:render_n], quats[:render_n], scales[:render_n],
             op[:render_n], colors[:render_n])
-        alive_r = alive_r[:render_n]
+        alive = alive[:render_n]
         tap = tap[:render_n]
         if absgrad_tap is not None:
             absgrad_tap = absgrad_tap[:render_n]
     cam_i = camera.index(cam_idx)
     if cam_delta is not None:
         cam_i = cam_i.replace(viewmat=apply_se3_delta(cam_i.viewmat, cam_delta))
-    normals_g = R.gaussian_flat_normals(quats, scales, means, cam_i.origin)
+    return ViewInputs(means, quats, scales, op, colors, alive, tap,
+                      absgrad_tap, cam_i,
+                      R.gaussian_flat_normals(quats, scales, means,
+                                              cam_i.origin))
+
+
+def compute_losses(gaussians: GaussianState, camera: Camera, data: TrainData,
+                   cam_idx: int, step: Optional[int], cfg: ExperimentConfig,
+                   tap: torch.Tensor, absgrad_tap: Optional[torch.Tensor] = None,
+                   render_n: Optional[int] = None, bins=None,
+                   cam_delta: Optional[torch.Tensor] = None,
+                   inputs: Optional[StepInputs] = None):
+    """Forward + composite DN-Splatter loss for one camera (view_inputs);
+    `inputs` replaces what the host step gives (StepInputs; `step` None
+    then)."""
+    mc = cfg.model
+    v = view_inputs(gaussians, camera, cam_idx, step, cfg, tap, absgrad_tap,
+                    render_n, cam_delta, inputs)
     out = R.rasterize(
-        means, quats, scales, op, colors, cam_i, mc.rasterize,
-        normals=normals_g,
-        background=device_vector(mc.background, means.device),
-        mean2d_tap=tap, absgrad_tap=absgrad_tap, bins=bins,
-        device=means.device)
+        v.means, v.quats, v.scales, v.op, v.colors, v.camera, mc.rasterize,
+        normals=v.normals,
+        background=device_vector(mc.background, v.means.device),
+        mean2d_tap=v.tap, absgrad_tap=v.absgrad_tap, bins=bins,
+        device=v.means.device)
     with span("fs.losses"):
-        return loss_terms(out, normals_g, gaussians, cam_i, data, cam_idx,
-                          step, cfg, alive_r, render_n=render_n,
+        return loss_terms(out, v.normals, gaussians, v.camera, data, cam_idx,
+                          step, cfg, v.alive, render_n=render_n,
                           generator=(None if inputs is None
                                      else inputs.generator))
 
@@ -342,9 +371,6 @@ def bin_view(cfg: ExperimentConfig, camera: Camera, gaussians: GaussianState,
     """Project view v with the current params (and its current pose delta)
     and build its flat layout."""
     rc = cfg.model.rasterize
-    grid = TileGrid(camera.width, camera.height, rc.tile_size)
-    B = rc.pallas_chunk
-    PB = R.pair_budget(rc, grid)
     N = render_n if render_n is not None else cfg.model.capacity
     with torch.no_grad():
         means, quats, scales, op, _ = activated(gaussians)
@@ -360,14 +386,7 @@ def bin_view(cfg: ExperimentConfig, camera: Camera, gaussians: GaussianState,
                                      near=rc.near, far=rc.far, eps2d=rc.eps2d,
                                      antialiased=rc.antialiased,
                                      radius_clip=rc.radius_clip)
-        with span("fs.bin"):
-            return flat_bin_gaussians(
-                proj.mean2d, proj.radius, proj.depth, width=camera.width,
-                height=camera.height, tile_size=rc.tile_size, pair_budget=PB,
-                max_tiles_per_gaussian=rc.max_tiles_per_gaussian, block=B,
-                compute_landing=rc.flat_grad_transpose != "scatter",
-                expand_budget=auto_expand_budget(
-                    PB, N, rc.max_tiles_per_gaussian, B))
+        return R.flat_layout(proj, cam_v, rc, n=N)
 
 
 def _keep_adam(ok: torch.Tensor, new: AdamState, old: AdamState) -> AdamState:

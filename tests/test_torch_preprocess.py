@@ -311,8 +311,8 @@ def test_cpu_tensors_take_the_plain_version():
     ins, camera = tensors(arrays, cam, "cpu")
     PP.reset_launch_counts()
     forward_backward(PP.preprocess, ins, camera, CFG)
-    R._prepare(ins["means"], ins["quats"], ins["scales"], ins["opacities"],
-               ins["colors"], camera, CFG, None, None)
+    R.prepare(ins["means"], ins["quats"], ins["scales"], ins["opacities"],
+              ins["colors"], camera, CFG, None, None)
     assert PP.LAUNCHES == {"preprocess_fwd": 0, "preprocess_bwd": 0,
                            "preprocess_plain": 2}
 
@@ -375,7 +375,7 @@ def test_preprocess_refuses_mixed_devices():
 
 def old_prepare(means, quats, scales, opacities, colors, camera, cfg, normals,
                 mean2d_tap):
-    """render/rasterize.py _prepare as the backends called it before the
+    """render/rasterize.py prepare as the backends called it before the
     kernel pair: the composition this module's plain version keeps."""
     from fusionsense_tpu_torch.core.sh import eval_sh
     from fusionsense_tpu_torch.core.transforms import normalize
@@ -430,9 +430,8 @@ def _render_grads(backend, arrays, cam, prepare, normals):
 @pytest.mark.parametrize("normals", [True, False])
 def test_prepare_on_the_cpu_is_the_composition_bit_for_bit(backend, normals,
                                                             one_thread):
-    """Each table path (jax: _xla_composite, pallas: dense_table, flat:
-    flat_table) renders and differentiates through the refactored _prepare
-    exactly as through the composition it replaced."""
+    """Each backend's table (R.tile_table) renders and differentiates
+    through R.prepare exactly as through the composition it replaced."""
     arrays, cam = scene(300, width=96, height=64, seed=2)
     cam = cam[:1] + (60.0, 60.0) + cam[3:]
     got = _render_grads(backend, arrays, cam, PP.preprocess, normals)
@@ -446,22 +445,24 @@ def test_prepare_on_the_cpu_is_the_composition_bit_for_bit(backend, normals,
 
 
 def test_sharded_use_of_prepare_is_the_composition_bit_for_bit(one_thread):
-    """parallel/sharded.py's use: _prepare, valid narrowed through
-    proj._replace, then its local flat table over a tile block."""
-    from fusionsense_tpu_torch.parallel.sharded import flat_local_table
-
+    """parallel/sharded.py's use: R.prepare, the live set narrowed through
+    proj._replace (valid and radius, as its depth slice does), then the flat
+    table of a tile block (R.tile_table at tile_lo 4, 12 tiles)."""
     arrays, cam = scene(300, width=96, height=64, seed=4)
     cam = cam[:1] + (60.0, 60.0) + cam[3:]
     cfg = dataclasses.replace(CFG, backend="flat")
     tabs, grads = [], []
-    for prepare in (R._prepare, old_prepare):
+    for prepare in (R.prepare, old_prepare):
         ins, camera = tensors(arrays, cam, "cpu")
         pre = prepare(ins["means"], ins["quats"], ins["scales"],
                       ins["opacities"], ins["colors"], camera, cfg,
                       ins["normals"], ins["tap"])
         valid = pre.proj.valid & (pre.proj.depth > 1.5)
-        pre = pre._replace(proj=pre.proj._replace(valid=valid))
-        table, _ = flat_local_table(pre, valid, camera, cfg, 4, 12)
+        pre = pre._replace(proj=pre.proj._replace(
+            valid=valid, radius=torch.where(valid, pre.proj.radius,
+                                            torch.zeros_like(pre.proj.radius))))
+        table = R.tile_table(pre, camera, cfg, tile_lo=4,
+                             num_tiles_local=12).table
         w = torch.randn(table.shape, generator=torch.Generator().manual_seed(5))
         leaves = [ins[k] for k in ("means", "quats", "scales", "opacities",
                                    "colors", "normals", "tap")]
@@ -473,6 +474,64 @@ def test_sharded_use_of_prepare_is_the_composition_bit_for_bit(one_thread):
         assert (a is None) == (b is None)
         if a is not None:
             assert torch.equal(a, b)
+
+
+# blocks [tile_lo, tile_lo + 5) of a 96x64 image's 24 tiles of 16 pixels (a
+# five-way tile split pads them to 25): one inside the grid, one past its end
+BLOCKS = (10, 20)
+T_LOC = 5
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas", "flat"])
+def test_tile_block_is_its_rows_of_the_whole_grid(backend, one_thread):
+    """R.render_tiles over a tile block gives the whole grid's rows of its
+    tiles inside the grid (the sharded step cuts the padding tile off after
+    its gather), and the same gradients of cotangents on those rows, bit
+    for bit: the block composites the same pairs in the same order, and a
+    Gaussian's landing slots outside the block add exact zeros."""
+    arrays, cam = scene(300, width=96, height=64, seed=6)
+    cam = cam[:1] + (60.0, 60.0) + cam[3:]
+    cfg = dataclasses.replace(CFG, backend=backend)
+    names = ("means", "quats", "scales", "opacities", "colors", "normals",
+             "tap")
+
+    def render(block):
+        ins, camera = tensors(arrays, cam, "cpu")
+        abs_tap = (None if backend == "jax"
+                   else torch.zeros((300, 2), requires_grad=True))
+        pre = R.prepare(ins["means"], ins["quats"], ins["scales"],
+                        ins["opacities"], ins["colors"], camera, cfg,
+                        ins["normals"], ins["tap"])
+        kw = {} if block is None else dict(tile_lo=block,
+                                           num_tiles_local=T_LOC)
+        r = R.render_tiles(pre, camera, cfg, absgrad_tap=abs_tap, **kw)
+        assert int(r.bins.overflow) == 0
+        return r, [ins[k] for k in names] + ([] if abs_tap is None
+                                             else [abs_tap])
+
+    whole, _ = render(None)
+    T = whole.alpha.shape[0]
+    assert T == 24
+    for lo in BLOCKS:
+        k = min(T_LOC, T - lo)
+        gen = torch.Generator().manual_seed(lo)
+        g_out = torch.randn((k,) + whole.out.shape[1:], generator=gen)
+        g_alpha = torch.randn((k,) + whole.alpha.shape[1:], generator=gen)
+        got, want = [], []
+        for block, rows in ((lo, slice(0, k)), (None, slice(lo, lo + k))):
+            r, leaves = render(block)
+            loss = ((r.out[rows] * g_out).sum()
+                    + (r.alpha[rows] * g_alpha).sum())
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            got.append((r.out[rows].detach(), r.alpha[rows].detach(), grads))
+            assert r.alpha.shape[0] == (T if block is None else T_LOC)
+        (out_b, alpha_b, grads_b), (out_w, alpha_w, grads_w) = got
+        assert torch.equal(out_b, out_w)
+        assert torch.equal(alpha_b, alpha_w)
+        for name, a, b in zip(names + ("absgrad_tap",), grads_b, grads_w):
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert torch.equal(a, b), name
 
 
 @pytest.fixture
