@@ -20,10 +20,15 @@ Phases (any failure exits non-zero and prints no result):
     first PRE_N Gaussians and view 0 (check_preprocess: every float output
     and input gradient, radius and valid equal off the rows at a rounding
     tie, and d viewmat from a second backward), each timed with the plain
-    version beside its byte bound;
+    version beside its byte bound; then the SSIM kernel pair against its
+    plain version at 640x480x3 (check_ssim: view 0's render against its
+    target, both held to a float64 evaluation; equal images give 1; two
+    calls equal to the bit), each timed beside its byte bound, the plain
+    version and, as library_ms, the same forward through F.conv2d;
  4. the flat path: Trainer.run for 60 steps (the bin cache is refreshed and
     reused), with every launch counter zeroed just before and read after
     (the preprocess pair's too: at least one forward and one backward a
+    step, no plain call; the SSIM pair's: one forward and one backward a
     step, no plain call);
     the last 50 steps, one chunk at one shape, are timed;
  5. K1/K2 and their stages against plain versions again, on the trained
@@ -184,8 +189,9 @@ Phases (any failure exits non-zero and prints no result):
     PSNR inside the JAX package's float32 seed envelope read from
     tests/torch_long_parity_jax.json, one line per boundary; K1/K2 at
     every step, no plain twin;
-21. a {"kernels": [...]} line for all four kernels and the preprocess
-    pair (its launches those of the flat path's 60 steps; K3/K4 timed at the
+21. a {"kernels": [...]} line for all four kernels, the preprocess
+    pair and the SSIM pair (their launches those of the flat path's 60
+    steps; K3/K4 timed at the
     fusionsense path's post-refine shape; launches those of every path
     that runs the kernel, graph replays, the mesh renders, fs-render's
     renders, the viewer phase's steps, the sharded ranks' steps and the
@@ -235,6 +241,11 @@ PRE_ULPS = 4       # times the plain version's own one-ulp sensitivity
 # screen bound's distance to its position, lies this close (relatively) to
 # the value where the two sides may round across it (as the tests' TIE_REL)
 PRE_TIE = 1e-5
+# the SSIM kernel pair (train/losses.py) against its plain version, each
+# held to a float64 evaluation as tests/test_torch_ssim.py holds them: the
+# kernels' gap at most SSIM_GAP times the plain float32 version's, or
+# SSIM_ATOL on the mean and SSIM_GRAD_RTOL of the gradient's largest |value|
+SSIM_GAP, SSIM_ATOL, SSIM_GRAD_RTOL = 4.0, 1e-6, 1e-6
 G_SCALE = 1e-4    # cotangent scale for K2's check: ~30x the per-pixel
 #                   cotangent of a mean loss over 640x480
 # the blend_bf16 branches (N5) against their plain twins, at the float32
@@ -252,6 +263,18 @@ G_SCALE = 1e-4    # cotangent scale for K2's check: ~30x the per-pixel
 # elements past the float32 limit, max|d| 2.5e-3, the float32 kernel at
 # least 1,050 times farther off.
 BF16_ULP, BF16_FLIP_FRAC, BF16_SEEN = 4e-3, 1e-3, 100.0
+# A stage's blend (acc, sacc of fwd_blocks and fwd_chunks) is held to one
+# flip's size at its own values: a w below 1 that lands on the neighbouring
+# bf16 value moves the blend by at most 2^-8 times the channel value it
+# weighs, so each element may differ by BF16_ULP times the largest |channel|
+# that its block or chunk blends in that channel, or by BF16_ULP where
+# that is below 1 (one bf16 ulp of a unit channel, as above).
+# K3's fwd_chunks exp(delta) is held to a float64 evaluation of the same
+# chunks (each alpha in float64 where the plain twin's is nonzero): the
+# kernel's max|d| to it at most EXP_DELTA_GAP times the twin's own, or
+# TOL_ALPHA where that is larger. Both sum up to B float32 log(1 - alpha)
+# terms front to back; the kernel rounds each term in its own order.
+EXP_DELTA_GAP = 4.0
 # the fusionsense path: the preset's schedule with the depth cut of the JAX
 # package's full-schedule CPU test (tests/test_quality_ledger.py:201-207)
 FS_STEPS, FS_CHUNK = 700, 50
@@ -536,17 +559,22 @@ def check_columns(name, dtab, dtab_p, tol=TOL_DTAB_REL):
     return float(err_col.max())
 
 
-def check_bf16(torch, name, got, plain, f32, limit, scale="abs"):
+def check_bf16(torch, name, got, plain, f32, limit, scale="abs",
+               flip=None):
     """A product of the blend_bf16 branch: the bf16 kernel's `got` against
     the bf16 twin's `plain` on the same inputs, beside `f32`, the float32
     kernel's on those inputs. |d| is taken absolutely (`scale` "abs"),
     over max|plain| ("max") or over each column's max|plain| ("columns",
     the last dimension). At most BF16_FLIP_FRAC of the elements may exceed
-    the float32 `limit`, none may exceed BF16_ULP, and f32's mean |d| must
-    be at least BF16_SEEN times got's (in each column, for "columns").
-    Returns the largest absolute difference."""
+    the float32 `limit`, none may exceed BF16_ULP (or, for "abs", its own
+    `flip`, a tensor of got's shape: the size of one flip at its values),
+    and f32's mean |d| must be at least BF16_SEEN times got's (in each
+    column, for "columns"). Returns the largest absolute difference."""
     width = got.shape[-1] if scale == "columns" else 1
-    got, plain, f32 = (x.reshape(-1, width) for x in (got, plain, f32))
+    if flip is None:
+        flip = torch.full_like(got, BF16_ULP)
+    got, plain, f32, flip = (x.reshape(-1, width)
+                             for x in (got, plain, f32, flip))
     if scale == "abs":
         s = torch.ones((1, 1), device=got.device)
     elif scale == "max":
@@ -558,19 +586,81 @@ def check_bf16(torch, name, got, plain, f32, limit, scale="abs"):
     d32 = (f32 - plain).abs() / s
     frac = float((d > limit).float().mean())
     worst = float(d.max())
+    over = d / flip
+    at = int(over.argmax()) if d.numel() else 0
+    flips = float(over.max()) if d.numel() else 0.0
     mean, mean32 = d.mean(dim=0), d32.mean(dim=0)
     seen = float((mean32 / mean.clamp_min(1e-30)).min())
     log(f"{name} bf16 vs twin: beyond the float32 limit {limit:.0e}: "
         f"{frac:.3e} of {d.numel()} (limit {BF16_FLIP_FRAC:.0e}); max|d| "
-        f"{worst:.3e} (limit {BF16_ULP:.0e}); mean|d| {float(mean.max()):.3e}"
+        f"{worst:.3e}, over its flip size {flips:.3f} (limit 1; the worst "
+        f"{float(d.flatten()[at]) if d.numel() else 0.0:.3e} against "
+        f"{float(flip.flatten()[at]) if d.numel() else BF16_ULP:.3e}); "
+        f"mean|d| {float(mean.max()):.3e}"
         f", float32 kernel's {float(mean32.min()):.3e}: {seen:.3g}x "
         f"(limit {BF16_SEEN:.0f}x)" + (" in the worst column"
                                       if scale == "columns" else ""))
-    if not (frac <= BF16_FLIP_FRAC and worst <= BF16_ULP
+    if not (frac <= BF16_FLIP_FRAC and flips <= 1.0
             and seen >= BF16_SEEN):
         raise RuntimeError(f"{name}: the bf16 branch disagrees with its "
                            f"plain twin or does not round")
     return float((got - plain).abs().max()) if got.numel() else 0.0
+
+
+def flip_sizes(torch, rows, shape):
+    """The size of one bf16 flip in each element of a blend of `shape`
+    (..., C, P), from its blocks' or chunks' table rows (..., B, 8 + C):
+    BF16_ULP times the largest |channel| a block blends in that channel,
+    or BF16_ULP where that is below 1."""
+    ch = rows[..., 8:].abs().amax(dim=-2).clamp_min(1.0)
+    return (BF16_ULP * ch)[..., None].expand(shape)
+
+
+def chunk_delta64(torch, table, counts, tile_ids, tiles_x, tile_size, B):
+    """fwd_chunks_plain's delta in float64: each chunk's sum of
+    log(1 - alpha) front to back, alpha formed in float64 from the same
+    table where the float32 twin's alpha is nonzero (the same rows pass
+    the 1/255 cut) and 0 elsewhere. Chunks past ceil(count / B) are 0."""
+    from fusionsense_tpu_torch.render import composite2 as C2
+    from fusionsense_tpu_torch.render.flat_composite import (
+        LOG_ALPHA_MAX, _alpha_of_rows, _pixel_xy,
+    )
+
+    T, K, _ = table.shape
+    P, nc = tile_size * tile_size, K // B
+    delta = torch.zeros((T, nc, P), dtype=torch.float64, device=table.device)
+    n = C2.n_chunks(counts, B, nc)
+    px_all, py_all = _pixel_xy(tile_ids.long(), tiles_x, tile_size, P)
+    for c in range(nc):
+        tl = torch.nonzero(c < n).squeeze(1)
+        if tl.numel() == 0:
+            break
+        rows = table[tl, c * B:(c + 1) * B]
+        px, py = px_all[tl], py_all[tl]
+        alpha32, _, _ = _alpha_of_rows(rows, px, py)
+        r = rows.double()
+        dx, dy = px.double() - r[..., 0:1], py.double() - r[..., 1:2]
+        power = -(0.5 * r[..., 2:3] * dx * dx + r[..., 3:4] * dx * dy
+                  + 0.5 * r[..., 4:5] * dy * dy) + r[..., 5:6]
+        alpha = torch.exp(torch.clamp_max(power, LOG_ALPHA_MAX))
+        alpha = torch.where(alpha32 > 0, alpha, torch.zeros_like(alpha))
+        delta[tl, c] = torch.log1p(-alpha).sum(dim=1)
+    return delta
+
+
+def exp_delta_errs(torch, got, plain, exact):
+    """K3's fwd_chunks exp(delta), the kernel's `got` and its twin's
+    `plain`, against the float64 evaluation `exact`: {what: (max|d|,
+    limit or None)}; the kernel's limit is EXP_DELTA_GAP times the twin's
+    max|d|, or TOL_ALPHA where that is larger."""
+    ex = torch.exp(exact)
+    k_gap = max_err(torch.exp(got.double()), ex)
+    p_gap = max_err(torch.exp(plain.double()), ex)
+    return {"exp(delta) vs the twin": (max_err(torch.exp(got),
+                                               torch.exp(plain)), None),
+            "exp(delta) vs float64": (k_gap, max(TOL_ALPHA,
+                                                 EXP_DELTA_GAP * p_gap)),
+            "the twin's": (p_gap, None)}
 
 
 def run_stages(torch, what, mod, stages, timed):
@@ -632,8 +722,10 @@ def check_stages(torch, FC, inputs, culled, timed, bf16=False):
     def acc_errs(k, p):
         if not bf16:
             return {"acc": (e(k[1], p[1]), TOL_OUT)}
+        flip = flip_sizes(torch, table.reshape(-1, geo[-1], table.shape[-1]),
+                          k[1].shape)
         return {w: (check_bf16(torch, f"K1 fwd_blocks {w}", k[i], p[i],
-                               f32["acc"], TOL_OUT), None)
+                               f32["acc"], TOL_OUT, flip=flip), None)
                 for w, i in (("acc", 1), ("sacc", 3))}
 
     stages = [
@@ -676,7 +768,8 @@ def check_dense_stages(torch, C2, inputs, timed, bf16=False):
     table, counts, tile_ids, geo, g_out, g_logt = inputs
     B = geo[-1]
     geo_b = (*geo, bf16)
-    nc = table.shape[1] // B
+    T, K, W = table.shape
+    nc = K // B
     delta, acc, sacc = C2.fwd_chunks_cuda(table, counts, tile_ids, *geo_b)
     _, logt, carries, nused = C2.fwd_combine_cuda(delta, acc, counts, B)
     S = C2.bwd_suffix_cuda(sacc, carries, nused, g_out, bf16)
@@ -689,20 +782,23 @@ def check_dense_stages(torch, C2, inputs, timed, bf16=False):
     chunk = torch.arange(nc, device=table.device)[None, :]
     done = chunk < C2.n_chunks(counts, B, nc)[:, None]
     used = chunk < nused[:, None]
+    delta64 = chunk_delta64(torch, table, counts, tile_ids, *geo)[done]
     e = max_err
     differ = lambda a, b: int((a != b).sum())  # noqa: E731
 
     def acc_errs(k, p):
         if not bf16:
             return {"acc": (e(k[1][done], p[1][done]), TOL_OUT)}
+        flip = flip_sizes(torch, table.reshape(T, nc, B, W), k[1].shape)
         return {w: (check_bf16(torch, f"K3 fwd_chunks {w}", k[i][done],
-                               p[i][done], f32["acc"][done], TOL_OUT), None)
+                               p[i][done], f32["acc"][done], TOL_OUT,
+                               flip=flip[done]), None)
                 for w, i in (("acc", 1), ("sacc", 2))}
 
     stages = [
         ("fwd_chunks", (table, counts, tile_ids, *geo_b),
-         lambda k, p: {"exp(delta)": (e(torch.exp(k[0][done]),
-                                        torch.exp(p[0][done])), TOL_ALPHA),
+         lambda k, p: {**exp_delta_errs(torch, k[0][done], p[0][done],
+                                        delta64),
                        **acc_errs(k, p)}),
         ("fwd_combine", (delta, acc, counts, B),
          lambda k, p: {"out": (e(k[0], p[0]), TOL_OUT),
@@ -1277,6 +1373,125 @@ def device_ms(torch, fn, n):
              if e.device_type() == DeviceType.CUDA
              and not e.is_user_annotation())
     return ns / n / 1e6
+
+
+def ssim64(torch, a, b):
+    """train/losses.py ssim_plain in float64, its float32 window cast up."""
+    from fusionsense_tpu_torch.train import losses as L
+
+    k1 = torch.tensor(L._window(11, 1.5), dtype=torch.float64,
+                      device=a.device)
+    x, y = torch.movedim(a.double(), -1, 0), torch.movedim(b.double(), -1, 0)
+    return _ssim_of(torch, L._filter2d_batch(
+        torch.cat([x, y, x * x, y * y, x * y], dim=0), k1), x.shape[0])
+
+
+def _ssim_of(torch, f, C, c1=0.01 ** 2, c2=0.03 ** 2):
+    """The mean SSIM from the filtered moments f (5 C, Ho, Wo)."""
+    mu_a, mu_b = f[:C], f[C:2 * C]
+    sig_a = f[2 * C:3 * C] - mu_a * mu_a
+    sig_b = f[3 * C:4 * C] - mu_b * mu_b
+    sig_ab = f[4 * C:] - mu_a * mu_b
+    return torch.mean(((2 * mu_a * mu_b + c1) * (2 * sig_ab + c2)) / (
+        (mu_a * mu_a + mu_b * mu_b + c1) * (sig_a + sig_b + c2)))
+
+
+def check_ssim(torch, tr):
+    """The SSIM kernel pair against its plain version at the cell's shape:
+    view 0's render of the trainer's state against its target, the
+    cotangent 1. Kernels and plain version are each held to the float64
+    evaluation (SSIM_GAP); equal images must give exactly 1 and two calls
+    the same bits. Then each kernel, the plain version's forward and
+    backward, and the forward through two F.conv2d passes (cuDNN, TF32
+    off; the port never calls it) timed with CUDA events beside the
+    kernels' byte bounds. Returns the {"kernels"} entries."""
+    import torch.nn.functional as F
+
+    from fusionsense_tpu_torch.gaussians.store import activated
+    from fusionsense_tpu_torch.render.rasterize import rasterize
+    from fusionsense_tpu_torch.train import losses as L
+    from fusionsense_tpu_torch.train import ssim_kernels as SK
+
+    rc = dataclasses.replace(tr.cfg.model.rasterize, tile_capacity=2048)
+    with torch.no_grad():
+        a = rasterize(*(x[:tr.render_n] for x in activated(tr.gaussians)),
+                      tr.camera.index(0), rc, device=tr.device).rgb
+        a = a.contiguous()
+    b = tr.data.images[0].contiguous()
+    H, W, C = a.shape
+    floats = (*L._window(11, 1.5), 0.01 ** 2, 0.03 ** 2)
+    g = torch.ones((), device=a.device)
+
+    def fwd():
+        return SK.ssim_fwd_cuda(a, b, floats, maps=True)
+
+    _, maps = fwd()
+
+    def bwd():
+        return SK.ssim_bwd_cuda(a, b, maps, g, floats)
+
+    leaf = a.clone().requires_grad_(True)
+    v_plain = L.ssim_plain(leaf, b)
+
+    def plain_fwd():
+        return L.ssim_plain(leaf, b)
+
+    def plain_bwd():
+        return torch.autograd.grad(v_plain, leaf, retain_graph=True)
+
+    w = torch.tensor(L._window(11, 1.5), device=a.device)
+
+    def library():
+        x, y = a.permute(2, 0, 1), b.permute(2, 0, 1)
+        st = torch.cat([x, y, x * x, y * y, x * y])[:, None]
+        f = F.conv2d(F.conv2d(st, w.view(1, 1, 11, 1)), w.view(1, 1, 1, 11))
+        return _ssim_of(torch, f[:, 0], C)
+
+    runs = [(fwd()[0], bwd()) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = (torch.equal(runs[0][0], runs[1][0])
+            and torch.equal(runs[0][1], runs[1][1]))
+    with torch.no_grad():
+        one = float(L.ssim(a, a.clone()))
+    leaf64 = a.double().requires_grad_(True)
+    v64 = ssim64(torch, leaf64, b)
+    (d64,) = torch.autograd.grad(v64, leaf64)
+    (d_plain,) = plain_bwd()
+    scale = float(d64.abs().max())
+    v_gap = abs(float(runs[0][0]) - float(v64))
+    p_gap = abs(float(v_plain.detach()) - float(v64))
+    g_gap = float((runs[0][1].double() - d64).abs().max()) / scale
+    gp_gap = float((d_plain.double() - d64).abs().max()) / scale
+    lib_gap = abs(float(library()) - float(v64))
+    log(f"ssim at {H}x{W}x{C} (view 0): mean {float(runs[0][0]):.9f}, "
+        f"float64 {float(v64):.9f}; gap to float64: kernel {v_gap:.3e}, plain "
+        f"{p_gap:.3e}, conv2d {lib_gap:.3e}; gradient (largest |value| "
+        f"{scale:.3e}), gap over that: kernel {g_gap:.3e}, plain "
+        f"{gp_gap:.3e}; equal "
+        f"images {one!r}; two calls equal to the bit: {same}")
+    if not (v_gap <= max(SSIM_GAP * p_gap, SSIM_ATOL)
+            and g_gap <= max(SSIM_GAP * gp_gap, SSIM_GRAD_RTOL)
+            and one == 1.0 and same):
+        raise RuntimeError("ssim: the kernels disagree with the plain version")
+    img, n_maps = 4 * H * W * C, 4 * 3 * C * (H - 10) * (W - 10)
+    entries = timed_entries("fusionsense_tpu_torch/csrc/ssim.cu", [
+        ("ssim_fwd", "none (the JAX package leaves the window to XLA)", fwd,
+         plain_fwd, (2 * img + n_maps) / PEAK_BYTES * 1e3, "bytes"),
+        ("ssim_bwd", "none (the JAX package leaves the window to XLA)", bwd,
+         plain_bwd, (3 * img + n_maps) / PEAK_BYTES * 1e3, "bytes")])
+    entries[0]["max_abs_err"] = v_gap
+    entries[1]["max_abs_err"] = g_gap * scale
+    entries[0]["library_ms"] = cuda_ms(library, TIMED_LAUNCHES, WARM_LAUNCHES)
+    for e, fn, fn_plain in ((entries[0], fwd, plain_fwd),
+                            (entries[1], bwd, plain_bwd)):
+        e["device_ms"] = device_ms(torch, fn, TIMED_LAUNCHES)
+        e["plain_device_ms"] = device_ms(torch, fn_plain, TIMED_LAUNCHES)
+    log(f"ssim: the card's time a call {entries[0]['device_ms']:.4f} / "
+        f"{entries[1]['device_ms']:.4f} ms (plain "
+        f"{entries[0]['plain_device_ms']:.4f} / "
+        f"{entries[1]['plain_device_ms']:.4f}); F.conv2d forward "
+        f"{entries[0]['library_ms']:.4f} ms")
+    return entries
 
 
 def train_path(torch, tr, name, counters, kernels):
@@ -3657,6 +3872,7 @@ def main():
         from fusionsense_tpu_torch.render import composite2 as C2
         from fusionsense_tpu_torch.render import flat_composite as FC
         from fusionsense_tpu_torch.render import preprocess as PP
+        from fusionsense_tpu_torch.train import ssim_kernels as SK
         from fusionsense_tpu_torch.train.trainer import Trainer
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
@@ -3702,10 +3918,14 @@ def main():
     errs0, _ = check_kernels(torch, tr, tr.tile_capacity, tr.cover_tiles,
                              timed=False)
     pre_kernels = check_preprocess(torch, tr)
+    ssim_kernels = check_ssim(torch, tr)
 
-    # 4. the flat path (the preprocess pair once per step and view render)
+    # 4. the flat path (the preprocess pair once per step and view render,
+    # the SSIM pair once per step)
     flat_names = ("flat_composite_fwd", "flat_composite_bwd")
     PP.reset_launch_counts()
+    SK.reset_launch_counts()
+    step0 = tr.step
     launches, ms_step, timed_shape = train_path(torch, tr, "flat", (FC, C2),
                                                 flat_names)
     for k, key in zip(pre_kernels, ("fwd", "bwd")):
@@ -3714,6 +3934,13 @@ def main():
             or PP.LAUNCHES["preprocess_plain"]):
         raise RuntimeError(f"flat: the main path missed the preprocess "
                            f"kernels: {PP.LAUNCHES}")
+    for k, key in zip(ssim_kernels, ("fwd", "bwd")):
+        k["launches"] = SK.LAUNCHES[f"ssim_{key}"]
+    steps = tr.step - step0
+    log(f"flat: SSIM launches {SK.LAUNCHES} over {steps} steps")
+    if SK.LAUNCHES != {"ssim_fwd": steps, "ssim_bwd": steps, "ssim_plain": 0}:
+        raise RuntimeError(f"flat: a step did not run the SSIM pair once: "
+                           f"{SK.LAUNCHES} over {steps} steps")
 
     # 5. K1/K2 against their plain versions at the timed steps' shape
     errs1, kernels = check_kernels(torch, tr, *timed_shape, timed=True)
@@ -3816,7 +4043,8 @@ def main():
         k["launches"] += long_launches[f"flat_composite_{key}"]
 
     # 21. results
-    print(json.dumps({"kernels": kernels + fs_kernels + pre_kernels}))
+    print(json.dumps({"kernels": kernels + fs_kernels + pre_kernels
+                      + ssim_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,11 @@ at first use, keyed by a hash of the flags, the source and every header
 under csrc/ that it includes (directly or through another header), into
 build/ at the repository root (listed in .gitignore). Nothing here runs at
 import time.
+
+The kernel modules' wrappers share what is here besides: `launch` calls an
+entry point, `check` refuses what the kernels cannot take, and each module
+keeps its launch counts in one `Launches`, which REGISTRY lists for
+train/graphs.py.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "fusionsense_tpu_torch"
-SOURCES = ("flat_composite", "composite2", "preprocess")
+SOURCES = ("flat_composite", "composite2", "preprocess", "ssim")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,6 +102,56 @@ def build_all(names=SOURCES) -> list[Built]:
     """Build the given sources at once, one nvcc process each."""
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return list(pool.map(build, names))
+
+
+class Launches:
+    """The launch counts of one kernel module. `counts` has one entry per
+    kernel entry point, counted once per forward or backward call whatever
+    its launches, and one per plain version, counted per call on CPU
+    tensors; chip_smoke.py zeroes them before driving a path and reads them
+    after it. `captured` counts the calls recorded into a CUDA graph under
+    stream capture: the graph runs them at each of its replays, so
+    train/graphs.py counts them there, from REGISTRY."""
+
+    def __init__(self, kernels, plain=()):
+        self.counts = dict.fromkeys((*kernels, *plain), 0)
+        self.captured = dict.fromkeys(kernels, 0)
+        REGISTRY.append(self)
+
+    def reset(self) -> None:
+        for k in self.counts:
+            self.counts[k] = 0
+
+    def count(self, key: str) -> None:
+        """One call of the entry point `key` (one recording, under capture)."""
+        import torch
+
+        (self.captured if torch.cuda.is_current_stream_capturing()
+         else self.counts)[key] += 1
+
+
+REGISTRY: list[Launches] = []      # every kernel module's, in import order
+
+
+def check(device, *specs) -> None:
+    """Raise ValueError unless each spec (name, tensor, dtype, shape) is a
+    contiguous tensor of that dtype and shape (None: one element) on
+    `device`, and `device` is a CUDA device: what the kernels take. The
+    CUDA test comes last, so a host build of a kernel's arithmetic can
+    take CPU tensors through every other test."""
+    for name, t, dtype, shape in specs:
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        want = "(one element)" if shape is None else tuple(shape)
+        if t.numel() != 1 if shape is None else tuple(t.shape) != want:
+            raise ValueError(f"{name} must have shape {want}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not on {device}")
+    if device.type != "cuda":
+        raise ValueError(f"the kernels take CUDA tensors, got {device}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -50,30 +50,16 @@ from __future__ import annotations
 
 import torch
 
+from fusionsense_tpu_torch.kernels.build import Launches, check, launch
 from fusionsense_tpu_torch.render.flat_composite import (
-    T_EPS_LOG, _alpha_of_rows, _check, _pixel_xy, blend_operand,
+    T_EPS_LOG, _alpha_of_rows, _pixel_xy, blend_operand,
 )
 
-# launches per entry point (one per K3 or K4 call, whatever its stages);
-# chip_smoke.py zeroes these before driving the main path and reads them
-# after it
-LAUNCHES = {"composite2_fwd": 0, "composite2_bwd": 0,
-            "composite2_fwd_plain": 0, "composite2_bwd_plain": 0}
-
-# launches recorded into a CUDA graph under stream capture: the graph runs
-# them at each of its replays, so train/graphs.py counts them there
-CAPTURED = {"composite2_fwd": 0, "composite2_bwd": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _count(key: str) -> None:
-    """One launch of a kernel's stages (one recording, under capture)."""
-    (CAPTURED if torch.cuda.is_current_stream_capturing()
-     else LAUNCHES)[key] += 1
+# launch counts (kernels/build.py Launches), one per K3 or K4 call
+_COUNTS = Launches(("composite2_fwd", "composite2_bwd"),
+                   plain=("composite2_fwd_plain", "composite2_bwd_plain"))
+LAUNCHES, CAPTURED = _COUNTS.counts, _COUNTS.captured
+reset_launch_counts, _count = _COUNTS.reset, _COUNTS.count
 
 
 def _chunks_of(K: int, B: int) -> int:
@@ -269,8 +255,6 @@ def _check_geometry(table, tile_size, B):
 
 
 def _launch(fn, tensors, ints):
-    from fusionsense_tpu_torch.kernels.build import launch
-
     launch("composite2", _FNS, fn, tensors, ints)
 
 
@@ -281,8 +265,8 @@ def fwd_chunks_cuda(table, counts, tile_ids, tiles_x, tile_size, B=128,
     _check_geometry(table, tile_size, B)
     T, K, W = table.shape
     C, P, nc = W - 8, tile_size * tile_size, K // B
-    _check(table.device, ("table", table, _F32, (T, K, W)),
-           ("counts", counts, _I32, (T,)), ("tile_ids", tile_ids, _I32, (T,)))
+    check(table.device, ("table", table, _F32, (T, K, W)),
+          ("counts", counts, _I32, (T,)), ("tile_ids", tile_ids, _I32, (T,)))
     delta = torch.empty((T, nc, P), dtype=_F32, device=table.device)
     acc = torch.empty((T, nc, C, P), dtype=_F32, device=table.device)
     sacc = torch.empty_like(acc) if blend_bf16 else acc
@@ -296,8 +280,8 @@ def fwd_combine_cuda(delta, acc, counts, B=128):
     T, nc, C, P = acc.shape
     if C != _C_SUPPORTED:
         raise ValueError(f"the CUDA kernels take C = {_C_SUPPORTED} channels")
-    _check(acc.device, ("delta", delta, _F32, (T, nc, P)),
-           ("acc", acc, _F32, (T, nc, C, P)), ("counts", counts, _I32, (T,)))
+    check(acc.device, ("delta", delta, _F32, (T, nc, P)),
+          ("acc", acc, _F32, (T, nc, C, P)), ("counts", counts, _I32, (T,)))
     out = torch.empty((T, C, P), dtype=_F32, device=acc.device)
     logt = torch.empty((T, P), dtype=_F32, device=acc.device)
     carries = torch.empty((T, nc, P), dtype=_F32, device=acc.device)
@@ -313,9 +297,9 @@ def bwd_suffix_cuda(acc, carries, nused, g_out, blend_bf16=False):
     T, nc, C, P = acc.shape
     if C != _C_SUPPORTED:
         raise ValueError(f"the CUDA kernels take C = {_C_SUPPORTED} channels")
-    _check(acc.device, ("acc", acc, _F32, (T, nc, C, P)),
-           ("carries", carries, _F32, (T, nc, P)),
-           ("nused", nused, _I32, (T,)), ("g_out", g_out, _F32, (T, C, P)))
+    check(acc.device, ("acc", acc, _F32, (T, nc, C, P)),
+          ("carries", carries, _F32, (T, nc, P)),
+          ("nused", nused, _I32, (T,)), ("g_out", g_out, _F32, (T, C, P)))
     S = torch.empty((T, nc, P), dtype=_F32, device=acc.device)
     _launch("fs_dense_bwd_suffix", (acc, carries, nused, g_out, S),
             (T, P, nc, C, int(blend_bf16)))
@@ -328,11 +312,11 @@ def bwd_chunks_cuda(table, nused, tile_ids, g_out, g_logt, logt, carries, S,
     _check_geometry(table, tile_size, B)
     T, K, W = table.shape
     C, P, nc = W - 8, tile_size * tile_size, K // B
-    _check(table.device, ("table", table, _F32, (T, K, W)),
-           ("nused", nused, _I32, (T,)), ("tile_ids", tile_ids, _I32, (T,)),
-           ("g_out", g_out, _F32, (T, C, P)), ("g_logt", g_logt, _F32, (T, P)),
-           ("logt", logt, _F32, (T, P)),
-           ("carries", carries, _F32, (T, nc, P)), ("S", S, _F32, (T, nc, P)))
+    check(table.device, ("table", table, _F32, (T, K, W)),
+          ("nused", nused, _I32, (T,)), ("tile_ids", tile_ids, _I32, (T,)),
+          ("g_out", g_out, _F32, (T, C, P)), ("g_logt", g_logt, _F32, (T, P)),
+          ("logt", logt, _F32, (T, P)),
+          ("carries", carries, _F32, (T, nc, P)), ("S", S, _F32, (T, nc, P)))
     dtab = torch.empty((T, K, W), dtype=_F32, device=table.device)
     _launch("fs_dense_bwd_chunks",
             (table, nused, tile_ids, g_out, g_logt, logt, carries, S, dtab),

@@ -59,6 +59,8 @@ import math
 
 import torch
 
+from fusionsense_tpu_torch.kernels.build import Launches, check, launch
+
 ALPHA_MAX = 0.999
 ALPHA_MIN = 1.0 / 255.0
 LOG_ALPHA_MAX = math.log(ALPHA_MAX)
@@ -67,26 +69,12 @@ CULL_LOG_OP = -15.0       # the cull's bounds, as in csrc/flat_composite.cu
 CULL_QUAD_MAX = 1e5
 _CHUNK = 64               # blocks a plain block stage takes at once
 
-# launches per entry point (one per K1 or K2 call, whatever its stages);
-# chip_smoke.py zeroes these before driving the main path and reads them
-# after it
-LAUNCHES = {"flat_composite_fwd": 0, "flat_composite_bwd": 0,
-            "flat_composite_fwd_plain": 0, "flat_composite_bwd_plain": 0}
-
-# launches recorded into a CUDA graph under stream capture: the graph runs
-# them at each of its replays, so train/graphs.py counts them there
-CAPTURED = {"flat_composite_fwd": 0, "flat_composite_bwd": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _count(key: str) -> None:
-    """One launch of a kernel's stages (one recording, under capture)."""
-    (CAPTURED if torch.cuda.is_current_stream_capturing()
-     else LAUNCHES)[key] += 1
+# launch counts (kernels/build.py Launches), one per K1 or K2 call
+_COUNTS = Launches(("flat_composite_fwd", "flat_composite_bwd"),
+                   plain=("flat_composite_fwd_plain",
+                          "flat_composite_bwd_plain"))
+LAUNCHES, CAPTURED = _COUNTS.counts, _COUNTS.captured
+reset_launch_counts, _count = _COUNTS.reset, _COUNTS.count
 
 
 def blend_operand(x: torch.Tensor, blend_bf16: bool) -> torch.Tensor:
@@ -358,24 +346,7 @@ def _check_geometry(table, tile_size, B):
                          "dividing the pair budget")
 
 
-def _check(device, *specs):
-    """Each spec (name, tensor, dtype, shape) must be a contiguous tensor of
-    that dtype and shape on the CUDA device `device`."""
-    for name, t, dt, shape in specs:
-        if not t.is_cuda or t.device != device:
-            raise ValueError(f"{name} must be on a CUDA device, {device}")
-        if t.dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                             f"{tuple(t.shape)}")
-
-
 def _launch(fn, tensors, ints):
-    from fusionsense_tpu_torch.kernels.build import launch
-
     launch("flat_composite", _FNS, fn, tensors, ints)
 
 
@@ -388,9 +359,9 @@ def fwd_blocks_cuda(table, runs, blk_count, tiles_x, tile_size, B=128,
     _check_geometry(table, tile_size, B)
     PB, W = table.shape
     C, P, nb = W - 8, tile_size * tile_size, PB // B
-    _check(table.device, ("table", table, _F32, (PB, W)),
-           ("runs", runs, _I32, (runs.numel(),)),
-           ("blk_count", blk_count, _I32, (nb,)))
+    check(table.device, ("table", table, _F32, (PB, W)),
+          ("runs", runs, _I32, (runs.numel(),)),
+          ("blk_count", blk_count, _I32, (nb,)))
     delta = torch.empty((nb, P), dtype=_F32, device=table.device)
     acc = torch.empty((nb, C, P), dtype=_F32, device=table.device)
     sacc = torch.empty_like(acc) if blend_bf16 else acc
@@ -406,9 +377,9 @@ def fwd_scan_cuda(delta, runs, blk_count):
     """Stage 2 of K1 on the card; same returns as fwd_scan_plain."""
     nb, P = delta.shape
     T1 = runs.numel() - 1
-    _check(delta.device, ("delta", delta, _F32, (nb, P)),
-           ("runs", runs, _I32, (T1 + 1,)),
-           ("blk_count", blk_count, _I32, (nb,)))
+    check(delta.device, ("delta", delta, _F32, (nb, P)),
+          ("runs", runs, _I32, (T1 + 1,)),
+          ("blk_count", blk_count, _I32, (nb,)))
     carry = torch.empty((nb, P), dtype=_F32, device=delta.device)
     live = torch.empty((nb,), dtype=_I32, device=delta.device)
     logt = torch.empty((T1, P), dtype=_F32, device=delta.device)
@@ -421,9 +392,9 @@ def fwd_combine_cuda(acc, carry, live, runs):
     """Stage 3 of K1 on the card; same returns as fwd_combine_plain."""
     nb, C, P = acc.shape
     T1 = runs.numel() - 1
-    _check(acc.device, ("acc", acc, _F32, (nb, C, P)),
-           ("carry", carry, _F32, (nb, P)), ("live", live, _I32, (nb,)),
-           ("runs", runs, _I32, (T1 + 1,)))
+    check(acc.device, ("acc", acc, _F32, (nb, C, P)),
+          ("carry", carry, _F32, (nb, P)), ("live", live, _I32, (nb,)),
+          ("runs", runs, _I32, (T1 + 1,)))
     out = torch.empty((T1, C, P), dtype=_F32, device=acc.device)
     _launch("fs_flat_fwd_combine", (acc, carry, live, runs, out), (T1, P, C))
     return out
@@ -435,10 +406,10 @@ def bwd_suffix_cuda(acc, carry, live, runs, g_out, blend_bf16=False):
     T1 = runs.numel() - 1
     if C != _C_SUPPORTED:
         raise ValueError(f"the CUDA kernels take C = {_C_SUPPORTED} channels")
-    _check(acc.device, ("acc", acc, _F32, (nb, C, P)),
-           ("carry", carry, _F32, (nb, P)), ("live", live, _I32, (nb,)),
-           ("runs", runs, _I32, (T1 + 1,)),
-           ("g_out", g_out, _F32, (T1, C, P)))
+    check(acc.device, ("acc", acc, _F32, (nb, C, P)),
+          ("carry", carry, _F32, (nb, P)), ("live", live, _I32, (nb,)),
+          ("runs", runs, _I32, (T1 + 1,)),
+          ("g_out", g_out, _F32, (T1, C, P)))
     S = torch.empty((nb, P), dtype=_F32, device=acc.device)
     _launch("fs_flat_bwd_suffix", (acc, carry, live, runs, g_out, S),
             (T1, P, C, int(blend_bf16)))
@@ -452,11 +423,11 @@ def bwd_blocks_cuda(table, runs, live, g_out, g_logt, logt, carry, S,
     PB, W = table.shape
     C, P, nb = W - 8, tile_size * tile_size, PB // B
     T1 = runs.numel() - 1
-    _check(table.device, ("table", table, _F32, (PB, W)),
-           ("runs", runs, _I32, (T1 + 1,)), ("live", live, _I32, (nb,)),
-           ("g_out", g_out, _F32, (T1, C, P)),
-           ("g_logt", g_logt, _F32, (T1, P)), ("logt", logt, _F32, (T1, P)),
-           ("carry", carry, _F32, (nb, P)), ("S", S, _F32, (nb, P)))
+    check(table.device, ("table", table, _F32, (PB, W)),
+          ("runs", runs, _I32, (T1 + 1,)), ("live", live, _I32, (nb,)),
+          ("g_out", g_out, _F32, (T1, C, P)),
+          ("g_logt", g_logt, _F32, (T1, P)), ("logt", logt, _F32, (T1, P)),
+          ("carry", carry, _F32, (nb, P)), ("S", S, _F32, (nb, P)))
     dtab = torch.empty((PB, W), dtype=_F32, device=table.device)
     _launch("fs_flat_bwd_blocks",
             (table, runs, live, g_out, g_logt, logt, carry, S, dtab),

@@ -23,26 +23,14 @@ import torch
 from fusionsense_tpu_torch.core.cameras import Camera
 from fusionsense_tpu_torch.core.sh import eval_sh, num_sh_bases
 from fusionsense_tpu_torch.core.transforms import normalize
+from fusionsense_tpu_torch.kernels.build import Launches, check, launch
 from fusionsense_tpu_torch.render.project import Projected, project_gaussians
 
-# launches per entry point (one per forward or backward call, whatever its
-# stages), and the plain version's calls; chip_smoke.py zeroes these before
-# driving a path and reads them after it
-LAUNCHES = {"preprocess_fwd": 0, "preprocess_bwd": 0, "preprocess_plain": 0}
-
-# launches recorded into a CUDA graph under stream capture: the graph runs
-# them at each of its replays, so train/graphs.py counts them there
-CAPTURED = {"preprocess_fwd": 0, "preprocess_bwd": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _count(key: str) -> None:
-    (CAPTURED if torch.cuda.is_current_stream_capturing()
-     else LAUNCHES)[key] += 1
+# launch counts (kernels/build.py Launches)
+_COUNTS = Launches(("preprocess_fwd", "preprocess_bwd"),
+                   plain=("preprocess_plain",))
+LAUNCHES, CAPTURED = _COUNTS.counts, _COUNTS.captured
+reset_launch_counts, _count = _COUNTS.reset, _COUNTS.count
 
 
 class Prepared(NamedTuple):
@@ -109,20 +97,7 @@ def _geometry(cfg, width: int, height: int):
 def _check(device, *specs):
     """Each spec (name, tensor, shape) must be a contiguous float32 tensor
     of that shape (None: one element) on `device`, a CUDA device."""
-    for name, t, shape in specs:
-        if t.dtype != _F32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if (t.numel() != 1 if shape is None
-                else tuple(t.shape) != tuple(shape)):
-            raise ValueError(f"{name} must have shape "
-                             f"{'(one element)' if shape is None else shape}"
-                             f", got {tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, means on {device}")
-    if device.type != "cuda":
-        raise ValueError(f"the kernels take CUDA tensors, got {device}")
+    check(device, *((name, t, _F32, shape) for name, t, shape in specs))
 
 
 def _check_inputs(means, quats, scales, opacities, colors, cam, sh_degree):
@@ -142,8 +117,6 @@ def _check_inputs(means, quats, scales, opacities, colors, cam, sh_degree):
 
 
 def _launch(fn, tensors, ints, floats):
-    from fusionsense_tpu_torch.kernels.build import launch
-
     launch("preprocess", _FNS, fn, tensors, ints, floats)
 
 

@@ -41,23 +41,22 @@ import time
 
 import torch
 
-from fusionsense_tpu_torch.render import composite2, flat_composite, preprocess
+from fusionsense_tpu_torch.kernels import build
 
-_KERNELS = (flat_composite, composite2, preprocess)
+
+def _captured() -> dict:
+    return {k: v for c in build.REGISTRY for k, v in c.captured.items()}
+
 
 # kernel launches made by graph replays, per kernel entry point (the keys
 # of the kernel modules' CAPTURED); chip_smoke.py zeroes these with the
 # modules' own counts before driving a path and adds them after
-REPLAYED = {k: 0 for mod in _KERNELS for k in mod.CAPTURED}
+REPLAYED: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for k in REPLAYED:
-        REPLAYED[k] = 0
-
-
-def _captured() -> dict:
-    return {k: v for mod in _KERNELS for k, v in mod.CAPTURED.items()}
+    REPLAYED.clear()
+    REPLAYED.update(dict.fromkeys(_captured(), 0))
 
 
 def pool_bytes(pool) -> tuple[int, int]:
@@ -92,7 +91,7 @@ class StepGraphs:
         graph.replay()
         self.replays += 1
         for k, n in launches.items():
-            REPLAYED[k] += n
+            REPLAYED[k] = REPLAYED.get(k, 0) + n
 
     def _capture(self, key, body):
         t0 = time.perf_counter()
@@ -126,4 +125,4 @@ class StepGraphs:
                 "graph pool allocated; another graph's replay would "
                 "overwrite them")
         self.capture_s += time.perf_counter() - t0
-        return graph, {k: after[k] - before[k] for k in after}
+        return graph, {k: after[k] - before.get(k, 0) for k in after}

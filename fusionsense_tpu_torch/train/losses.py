@@ -1,15 +1,24 @@
 """Loss primitives of the DN-Splatter objective.
 
-Counterpart of fusionsense_tpu/train/losses.py: RGB L1 + SSIM (separable,
-as banded matrix products), depth losses incl. edge-aware log-L1, TV and
-edge-aware TV, normal L1 / cosine, pseudo-normals from depth, flatness,
-opacity entropy and touch-normal losses. Reductions are mask-weighted means.
+Counterpart of fusionsense_tpu/train/losses.py: RGB L1 + SSIM, depth losses
+incl. edge-aware log-L1, TV and edge-aware TV, normal L1 / cosine,
+pseudo-normals from depth, flatness, opacity entropy and touch-normal
+losses. Reductions are mask-weighted means.
+
+`ssim` sends CPU tensors to the plain version (the separable window as two
+banded matrix products, as the JAX package has it) and CUDA tensors to the
+kernel pair of csrc/ssim.cu (train/ssim_kernels.py); there is no fallback
+between the two. The gradient goes to the first image only.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from fusionsense_tpu_torch.core.cameras import backproject_depth
+from fusionsense_tpu_torch.train import ssim_kernels
+from fusionsense_tpu_torch.utils.profiling import span
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -48,15 +57,15 @@ def _filter2d_batch(imgs: torch.Tensor, k1: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bow,pw->bop", t, Bw)
 
 
-def ssim(a: torch.Tensor, b: torch.Tensor, *, size: int = 11,
-         sigma: float = 1.5, c1: float = 0.01 ** 2,
-         c2: float = 0.03 ** 2) -> torch.Tensor:
-    """Mean SSIM over an (H, W, C) pair in [0, 1]."""
+def ssim_plain(a: torch.Tensor, b: torch.Tensor, *, size: int = 11,
+               sigma: float = 1.5, c1: float = 0.01 ** 2,
+               c2: float = 0.03 ** 2) -> torch.Tensor:
+    """The plain version: mean SSIM over an (H, W, C) pair in [0, 1], the
+    window as banded matrix products under autograd."""
+    ssim_kernels.LAUNCHES["ssim_plain"] += 1
     x = torch.movedim(a, -1, 0)
     y = torch.movedim(b, -1, 0)
-    g = gaussian_taps(size, sigma, device=a.device)
-    k1 = g * g[0]        # column 0 of the 2-D window, as the reference takes it
-    k1 = k1 / torch.sum(k1)
+    k1 = torch.tensor(_window(size, float(sigma)), device=a.device)
     f = _filter2d_batch(torch.cat([x, y, x * x, y * y, x * y], dim=0), k1)
     C = x.shape[0]
     mu_a, mu_b = f[:C], f[C:2 * C]
@@ -67,6 +76,32 @@ def ssim(a: torch.Tensor, b: torch.Tensor, *, size: int = 11,
     s = ((2 * mu_ab + c1) * (2 * sig_ab + c2)) / (
         (mu_aa + mu_bb + c1) * (sig_a + sig_b + c2))
     return torch.mean(s)
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, *, size: int = 11,
+         sigma: float = 1.5, c1: float = 0.01 ** 2,
+         c2: float = 0.03 ** 2) -> torch.Tensor:
+    """Mean SSIM over an (H, W, C) pair in [0, 1]: the kernel pair for CUDA
+    tensors, the plain version for CPU ones."""
+    if a.device != b.device:
+        raise ValueError(f"b is on {b.device}, a on {a.device}")
+    with span("fs.ssim"):
+        if a.device.type == "cuda":
+            return ssim_kernels.ssim_cuda(a, b, _window(size, float(sigma)),
+                                          c1, c2)
+        return ssim_plain(a, b, size=size, sigma=sigma, c1=c1, c2=c2)
+
+
+@functools.lru_cache(maxsize=None)
+def _window(size: int, sigma: float) -> tuple:
+    """SSIM's 1-D window as host floats, computed once in float32 on the
+    CPU for every device: column 0 of the 2-D window, normalised, as the
+    reference takes it. One window for both routes: its float32 sum is not
+    exactly 1, and sigma = E[x^2] - mu^2 turns a window an ulp off into a
+    gap of ~1e-5 in the mean."""
+    g = gaussian_taps(size, sigma)
+    k1 = g * g[0]
+    return tuple(float(v) for v in k1 / torch.sum(k1))
 
 
 def rgb_loss(pred: torch.Tensor, gt: torch.Tensor,

@@ -452,6 +452,8 @@ def test_fused_graphs_match_eager_on_card(card, backend, extras):
         key = "flat_composite" if backend == "flat" else "composite2"
         assert G.REPLAYED[f"{key}_fwd"] >= 100
         assert G.REPLAYED[f"{key}_bwd"] >= 100
+    # every backend's loss runs the SSIM pair once a step
+    assert G.REPLAYED["ssim_fwd"] == G.REPLAYED["ssim_bwd"] == 100
     assert G.pool_bytes(tr_b._graph_pool)[0] == 0
 
 
@@ -678,7 +680,7 @@ def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
     header that a source includes changes that source's build key (and
     only that of the sources that include it)."""
     assert set(build.SOURCES) == {"flat_composite", "composite2",
-                                  "preprocess"}
+                                  "preprocess", "ssim"}
     header = "composite_common.cuh"
     sharing = ("flat_composite", "composite2")
     for name in build.SOURCES:
@@ -695,4 +697,57 @@ def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
     after = {n: build._target(n) for n in build.SOURCES + ("lone",)}
     assert all(before[n] != after[n] for n in sharing)
     assert before["preprocess"] == after["preprocess"]
+    assert before["ssim"] == after["ssim"]
     assert before["lone"] == after["lone"]
+
+
+def test_launch_counts_are_kept_in_one_registry(monkeypatch):
+    """Each kernel module keeps its counts in one build.Launches, and the
+    CUDA graphs read every module's captured counts from the registry."""
+    from fusionsense_tpu_torch.render import preprocess as PP
+    from fusionsense_tpu_torch.train import graphs as G
+    from fusionsense_tpu_torch.train import ssim_kernels as SK
+
+    mods = (FC, C2, PP, SK)
+    assert {id(m._COUNTS) for m in mods} <= {id(c) for c in build.REGISTRY}
+    for m in mods:
+        assert m.LAUNCHES is m._COUNTS.counts
+        assert m.CAPTURED is m._COUNTS.captured
+        assert set(m.CAPTURED) < set(m.LAUNCHES)
+    assert set(G._captured()) == {k for m in mods for k in m.CAPTURED}
+    SK.reset_launch_counts()
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    monkeypatch.setitem(SK.CAPTURED, "ssim_bwd", 0)
+    SK._count("ssim_fwd")
+    capturing[0] = True
+    SK._count("ssim_bwd")
+    assert SK.LAUNCHES == {"ssim_fwd": 1, "ssim_bwd": 0, "ssim_plain": 0}
+    assert SK.CAPTURED["ssim_bwd"] == 1
+    SK.reset_launch_counts()
+    assert set(SK.LAUNCHES.values()) == {0}
+    G.reset_launch_counts()
+    assert G.REPLAYED == dict.fromkeys(G._captured(), 0)
+
+
+CHECKED = {   # build.check's refusals: (dtype, shape wanted, tensor)
+    "dtype": (torch.float32, (2, 3), torch.zeros((2, 3), dtype=torch.int32)),
+    "not_contiguous": (torch.float32, (3, 2), torch.zeros((2, 3)).t()),
+    "shape": (torch.float32, (2, 3), torch.zeros((3, 2))),
+    "one_element": (torch.float32, None, torch.zeros((2,))),
+    "other_device": (torch.float32, (2, 3),
+                     torch.zeros((2, 3), device="meta")),
+    "cpu": (torch.float32, None, torch.zeros(())),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHECKED))
+def test_check_refuses_what_the_kernels_cannot_take(name):
+    """build.check, which every kernel wrapper calls before a launch: CPU
+    tensors fail last, after every other test has passed."""
+    dtype, shape, t = CHECKED[name]
+    with pytest.raises(ValueError) as e:
+        build.check(torch.device("cpu"), ("x", t, dtype, shape))
+    cpu = str(e.value) == "the kernels take CUDA tensors, got cpu"
+    assert cpu == (name == "cpu")

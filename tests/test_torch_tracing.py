@@ -110,13 +110,14 @@ def test_train_loop_spans_count_and_nest(run_profile):
     assert Counter(x[0] for x in spans) == {
         "fs.step": steps, "fs.forward": steps, "fs.project": steps,
         "fs.bin": steps, "fs.composite": steps, "fs.losses": steps,
-        "fs.backward": steps, "fs.update": steps, "fs.refine_boundary": 2,
-        "fs.log_boundary": 2}
+        "fs.ssim": steps, "fs.backward": steps, "fs.update": steps,
+        "fs.refine_boundary": 2, "fs.log_boundary": 2}
     parent = {"fs.step": None, "fs.refine_boundary": None,
               "fs.log_boundary": None, "fs.forward": "fs.step",
               "fs.backward": "fs.step", "fs.update": "fs.step",
               "fs.project": "fs.forward", "fs.bin": "fs.forward",
-              "fs.composite": "fs.forward", "fs.losses": "fs.forward"}
+              "fs.composite": "fs.forward", "fs.losses": "fs.forward",
+              "fs.ssim": "fs.losses"}
     for name, s, e in spans:
         assert innermost(spans, s, e) == parent[name], name
 
